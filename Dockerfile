@@ -1,5 +1,6 @@
 # fugu_tpu server image (reference ships a Dockerfile; parity artifact).
-# For TPU runtimes, base this on your TPU-enabled JAX image instead.
+# For a GPU, install JAX with its CUDA plugin ("jax[cuda12]") on a CUDA
+# base image instead of the CPU wheel below.
 FROM python:3.12-slim
 
 RUN apt-get update && apt-get install -y --no-install-recommends g++ \

@@ -1,5 +1,5 @@
 # fugu_tpu build/test entry points
-.PHONY: all native test bench serve clean
+.PHONY: all native test test-gpu bench serve clean
 
 all: native test
 
@@ -7,10 +7,12 @@ native:
 	python -m fugu_tpu.native --build
 
 test:
-	python -m pytest tests/ -x -q
+	JAX_PLATFORMS=cpu python -m pytest tests/ -q -n 6
 
-test-tpu:
-	FUGU_TEST_TPU=1 python -m pytest tests/ -x -q
+# on a machine with an NVIDIA GPU: the card-only tests and the smoke run
+test-gpu:
+	FUGU_TEST_GPU=1 python -m pytest tests/ -q -m gpu
+	python chip_smoke.py
 
 bench:
 	python bench.py
@@ -19,5 +21,5 @@ serve:
 	python -m fugu_tpu serve --port 3301
 
 clean:
-	rm -rf .bench_cache native/libfugu_native.so
+	rm -rf .bench_cache .jax_cache native/libfugu_native.so
 	find . -name __pycache__ -type d -exec rm -rf {} +

@@ -206,7 +206,7 @@ def get_object(server: str, object_id: str) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        prog="fugu", description="fugu_tpu — TPU-native full-text search"
+        prog="fugu", description="fugu_tpu — full-text search"
     )
     parser.add_argument(
         "--server", default=DEFAULT_SERVER, help="server URL (default %(default)s)"
@@ -259,7 +259,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--shard-slices",
         type=int,
         default=None,
-        help="outer (DCN) mesh axis size for multi-slice serving",
+        help="outer mesh axis size (2-D device mesh)",
     )
     return parser
 

@@ -27,7 +27,6 @@ import os
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
-import yaml
 
 CONFIG_PROBE_PATHS = [
     "server_config.yaml",
@@ -40,7 +39,7 @@ ENV_DATA_PATH = "FUGU_DATA_PATH"
 ENV_DEFAULT_NAMESPACE = "FUGU_DEFAULT_NAMESPACE"
 #: multi-chip serving: number of mesh devices (0/unset = single-chip)
 ENV_SHARD_DEVICES = "FUGU_SHARD_DEVICES"
-#: multi-slice meshes: outer (DCN) axis size; devices must divide evenly
+#: 2-D meshes: outer axis size; devices must divide evenly
 ENV_SHARD_SLICES = "FUGU_SHARD_SLICES"
 #: cold-namespace spill tier: remote prefix (s3://bucket/prefix or a
 #: file:///path for the filesystem backend); unset = spill disabled
@@ -127,7 +126,7 @@ class ServerConfig:
     auto_create_directories: bool = True
     validation: ValidationConfig = dataclasses.field(default_factory=ValidationConfig)
     #: doc-range sharding over a device mesh (parallel/sharded.py);
-    #: 0 = single-chip.  shard_slices > 1 builds a 2-D (DCN x ICI) mesh.
+    #: 0 = single device.  shard_slices > 1 builds a 2-D mesh.
     shard_devices: int = 0
     shard_slices: int = 1
     #: compaction mode for every index: background (default) | sync | off
@@ -207,6 +206,8 @@ class ServerConfig:
         except OSError as e:
             raise ConfigError(f"Failed to read config file {path}: {e}") from e
         if path.suffix in (".yaml", ".yml"):
+            import yaml
+
             try:
                 data = yaml.safe_load(content) or {}
             except yaml.YAMLError as e:

@@ -3,7 +3,7 @@
 The reference's only compactor is Tantivy's background merge threads +
 LogMergePolicy inside ``IndexWriter`` (`/root/reference/src/db/core.rs:
 247-249`; the README's "compactor service" doesn't exist as code).
-This module is the TPU build's equivalent, split the same way:
+This module is this build's equivalent, split the same way:
 
 - :class:`LogMergePolicy` — Tantivy's size-tiered selection semantics
   (tantivy 0.24 ``LogMergePolicy`` defaults: merge a *level* of >= 8

@@ -1,6 +1,6 @@
-"""Immutable index segments with TPU-resident posting packs.
+"""Immutable index segments with device-resident posting packs.
 
-This is the TPU-native replacement for the engine layer the reference
+This is the device-side replacement for the engine layer the reference
 delegates to Tantivy (SURVEY.md §2b): per-segment term dictionary,
 inverted index, fieldnorms, facet postings, doc store and tombstones.
 
@@ -553,8 +553,8 @@ class Segment:
 
     def device_tomb_flags(self):
         """Per-doc tombstone flags (int32 0/1) as [doc//256, doc%256]
-        rows, padded to a block-aligned pow2 length — the Pallas kernel
-        DMAs whole doc blocks of these in its (hi, lo) block layout."""
+        rows, padded to a block-aligned pow2 length — the block scorer
+        reads them as whole BLOCK-doc rows."""
         if getattr(self, "_device_tomb_flags", None) is None:
             import jax.numpy as jnp
 
@@ -590,8 +590,8 @@ class Segment:
 
         Array lengths are padded to a coarse power-of-two ladder: the jit
         signature includes these shapes, so without bucketing every
-        segment size would compile a fresh program (~minutes each on this
-        stack).  Padding is sentinel/zero and invisible to the kernel.
+        segment size would compile a fresh program.  Padding is
+        sentinel/zero and invisible to the kernels.
         """
         from fugu_tpu.ops import residency
 
@@ -641,12 +641,13 @@ class Segment:
         return pack
 
 
-#: block-major pack constants (ops/batch_scorer phase A): docs per block
-#: and entries per DMA chunk (1024-aligned starts are a Mosaic rule).
-#: 512 measured best on the 1M bench mix: 256 halves the doc-scatter
-#: matmul but doubles the grid steps / per-block DMA+padding overhead
-#: and lost ~30% end-to-end (230 vs 308 QPS)
+#: block-major pack constants (ops/batch_scorer phase A): docs per
+#: maxima block (FINE_PER_BLOCK splits it further) and docs per doc
+#: sub-block, the unit one phase-A program reduces.  BM_CHUNK is the
+#: row count of one token-stream chunk (ops/phrase_stream).
 BM_BLOCK_DOCS = 512
+BM_SUB_DOCS = 64
+BM_SUBS_PER_BLOCK = BM_BLOCK_DOCS // BM_SUB_DOCS
 BM_CHUNK = 2048
 
 
@@ -694,35 +695,25 @@ def entry_term_contribs(segment: "Segment", stats):
 
 
 def pack_block_major(docs, tids, contribs, doc_count):
-    """(bm_doc, bm_tid, bm_con, chunk_offs, n_blocks) host arrays: the
-    entries re-sorted by BM_BLOCK_DOCS-doc block, each block's run padded
-    to whole BM_CHUNK chunks (aligned double-buffered DMA streaming)."""
-    block = docs // BM_BLOCK_DOCS
-    order = np.argsort(block, kind="stable")
+    """(bm_doc, bm_tid, bm_con, sub_offs, n_blocks) host arrays: the
+    entries sorted by doc (stable, so each doc keeps its term order),
+    padded with doc = tid = -1 to a pow2 bucket.  ``sub_offs[k]`` is the
+    first entry of doc sub-block k (BM_SUB_DOCS docs each), for k in
+    [0, n_blocks * BM_SUBS_PER_BLOCK] — one phase-A program reads
+    exactly the entries [sub_offs[k], sub_offs[k + 1])."""
+    order = np.argsort(docs, kind="stable")
     s_doc = docs[order]
-    s_tid = tids[order]
-    s_con = contribs[order]
-    s_blk = block[order]
-
     n_blocks = max((doc_count + BM_BLOCK_DOCS - 1) // BM_BLOCK_DOCS, 1)
-    counts = np.bincount(s_blk, minlength=n_blocks)
-    pad_counts = ((counts + BM_CHUNK - 1) // BM_CHUNK) * BM_CHUNK
-    out_ends = np.cumsum(pad_counts)
-    total = int(out_ends[-1]) if len(out_ends) else BM_CHUNK
-    size = _pow2_bucket(max(total, BM_CHUNK))
+    size = _pow2_bucket(max(len(s_doc), 1))
     bm_doc = np.full(size, -1, dtype=np.int32)
     bm_tid = np.full(size, -1, dtype=np.int32)
     bm_con = np.zeros(size, dtype=np.float32)
-    # scatter each block's run to its padded offset (vectorized)
-    src_starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
-    dst_starts = np.concatenate(([0], out_ends[:-1]))
-    idx = np.arange(len(s_doc), dtype=np.int64)
-    shift = np.repeat(dst_starts - src_starts, counts)
-    bm_doc[idx + shift] = s_doc
-    bm_tid[idx + shift] = s_tid
-    bm_con[idx + shift] = s_con
-    chunk_offs = np.concatenate(([0], out_ends // BM_CHUNK)).astype(np.int32)
-    return bm_doc, bm_tid, bm_con, chunk_offs, n_blocks
+    bm_doc[: len(s_doc)] = s_doc
+    bm_tid[: len(s_doc)] = tids[order]
+    bm_con[: len(s_doc)] = contribs[order]
+    edges = np.arange(n_blocks * BM_SUBS_PER_BLOCK + 1, dtype=np.int64)
+    sub_offs = np.searchsorted(s_doc, edges * BM_SUB_DOCS).astype(np.int32)
+    return bm_doc, bm_tid, bm_con, sub_offs, n_blocks
 
 
 def _evict_entry_pack(seg: "Segment") -> None:
@@ -738,9 +729,9 @@ class BlockMajorPack:
     corpus-stream scorer (ops/batch_scorer).
 
     Every entry carries (doc, global term id, weight-free BM25
-    contribution — see :func:`entry_term_contribs`).  Entries of one
-    512-doc block are contiguous and padded to whole chunks so the
-    kernel streams the pack with aligned double-buffered DMAs.
+    contribution — see :func:`entry_term_contribs`), sorted by doc, so
+    the entries of each BM_SUB_DOCS-doc sub-block are one contiguous run
+    (``sub_offs``).
     """
 
     def __init__(self, segment: "Segment", stats):
@@ -751,7 +742,7 @@ class BlockMajorPack:
         tid_entry, contrib, self.tid_of, self.n_terms = entry_term_contribs(
             segment, stats
         )
-        bm_doc, bm_tid, bm_con, self.chunk_offs, self.n_blocks = (
+        bm_doc, bm_tid, bm_con, self.sub_offs, self.n_blocks = (
             pack_block_major(docs, tid_entry, contrib, segment.doc_count)
         )
 
@@ -766,11 +757,10 @@ class BlockMajorPack:
         )
         self.d_doc = jnp.asarray(bm_doc)
         self.d_tid = jnp.asarray(bm_tid)
-        # bf16 storage: the phase-A kernel multiplies v * con and casts
+        # bf16 storage: the phase-A kernel multiplies w * con and casts
         # the product to bf16 for the doc matmul anyway, so pre-rounding
         # con costs one more bf16 ulp (covered by MARGIN_REL's 3-rounding
-        # budget, ops/batch_scorer.py) and halves the pack's third lane —
-        # at 8M+ docs the contribution lane alone is GBs of HBM
+        # budget, ops/batch_scorer.py) and halves the pack's third lane
         self.d_con = jnp.asarray(bm_con, dtype=jnp.bfloat16)
 
 
@@ -778,16 +768,12 @@ def _pow2_bucket(n: int) -> int:
     """Shape bucket for device arrays (jit signatures include shapes).
 
     Plain powers of two up to 2^28 elements — few shapes, few compiles.
-    Above that a doubling step wastes up to ~50% of multi-GB HBM arrays
-    (a 16M-doc corpus is ~700M postings; the next pow2 is 1.07G), so
-    huge arrays step by 2^k/16: at most +12.5% padding for at most 16x
-    the (persistently cached, corpus-scale) compile shapes.  The finer
-    ladder is what lets a 16M-doc corpus keep BOTH query-path packs
-    (flat entry ~5.9GB + block-major ~7.4GB) under the 16GB chip's
-    residency budget at once — quarter steps put the pair ~1GB over and
-    the LRU thrashed a whole pack per phase.  Steps are multiples of
-    2^25, so every alignment the packs rely on (1024-entry DMA windows,
-    BM_CHUNK runs) is preserved."""
+    Above that a doubling step wastes up to ~50% of multi-GB device
+    arrays (a 16M-doc corpus is ~700M postings; the next pow2 is 1.07G),
+    so huge arrays step by 2^k/16: at most +12.5% padding for at most 16x
+    the (corpus-scale) compile shapes.  Steps are multiples of 2^25, so
+    every alignment the packs rely on (BM_CHUNK runs, whole token-stream
+    chunks) is preserved."""
     p = 1024
     while p < n:
         p <<= 1
@@ -800,8 +786,8 @@ def _pow2_bucket(n: int) -> int:
 def pack_entry_size(n_entries: int) -> int:
     """Device entry-pack length for ``n_entries`` postings.
 
-    +8192 reserve: block-window DMAs (ops/pallas_scorer) read
-    1024-aligned windows past the last entry.  Shared with
+    +8192 reserve: fixed-width posting windows may start near the last
+    entry and read past it.  Shared with
     ops/device_merge so a device-merged pack's shapes can never drift
     from the host-upload path's (a mismatch would jit-compile a fresh
     divergent program per merged segment)."""
@@ -809,9 +795,8 @@ def pack_entry_size(n_entries: int) -> int:
 
 
 def pack_word_size(doc_count: int) -> int:
-    """Tombstone-bitset word count for ``doc_count`` docs (+64 reserve:
-    per-block tombstone DMAs read whole 64-word rows; shared with
-    ops/device_merge — see pack_entry_size)."""
+    """Tombstone-bitset word count for ``doc_count`` docs (+64 reserve
+    words; shared with ops/device_merge — see pack_entry_size)."""
     return _pow2_bucket(max((doc_count + 31) // 32, 1) + 64)
 
 

@@ -5,9 +5,8 @@ We bucket the degrees of freedom — clause count T, longest posting
 window L, result size K, and query batch size B —
 to small fixed ladders so the number of distinct compiled programs stays
 bounded (SURVEY.md §7 "Dynamic-shape postings vs static-shape kernels").
-The ladders are deliberately coarse: on this stack each new program
-costs ~O(minutes) of (remote) XLA compilation, so fewer/larger buckets
-beat tighter padding.
+The ladders are deliberately coarse: every new program shape is a fresh
+compilation, so fewer/larger buckets beat tighter padding.
 """
 
 from __future__ import annotations
@@ -55,7 +54,7 @@ K_EXTRACT_LADDER = (16, 32, 64, 128)
 def k_extract(limit: int):
     """Extraction size with rescore slack: the next rung STRICTLY above
     ``limit``, so host rescoring always sees candidates past the bucket
-    boundary (a last-ulp TPU-vs-IEEE flip at the k-th/(k+1)-th boundary
+    boundary (a last-ulp device-vs-host flip at the k-th/(k+1)-th boundary
     must not exclude the true k-th doc).  None when ``limit`` >= the
     top rung: slack is impossible — callers decline (device phrases) or
     clamp to their MAX_K where zero slack is the accepted tradeoff

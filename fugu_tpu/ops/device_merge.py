@@ -1,4 +1,4 @@
-"""On-device segment merge: rebuild a merged posting pack in HBM.
+"""On-device segment merge: rebuild a merged posting pack in device memory.
 
 The SURVEY §2b north star ("on-device segment merge-sort with tombstone
 filtering") — the reference's counterpart is Tantivy's segment merger
@@ -26,7 +26,7 @@ int32 end to end (pack sizes stay < 2^31 by construction):
 3. **Stream compaction** (device): dead entries drop out via the
    monotone-gather idiom — output slot q reads the q-th live entry,
    located with ``searchsorted(cumsum(live), q+1)`` — no scatter, which
-   keeps the whole program gather/cumsum-shaped (fast on TPU, and XLA
+   keeps the whole program gather/cumsum-shaped (and XLA
    fuses the surrounding elementwise work).
 
 The result is bit-identical to ``merged.device_pack()`` built from the

@@ -1,11 +1,9 @@
-"""TPU-native batched phrase engine: brute-force corpus-position stream.
+"""Batched phrase engine: one sweep over a forward token stream.
 
-The measured lesson from ops/device_phrase.py (round 3): pointer-chasing
-sorted-merge (searchsorted/gather over position lists) is the one access
-pattern this hardware refuses — 3 QPS device vs 3,764 host.  The device
-wins by brute-force streaming, which is why the term engine's phase A
-streams the corpus once per batch (ops/batch_scorer.py).  This module
-gives phrases the same shape:
+Position lists are the natural phrase index, but a batch of phrases can
+also be answered by ONE streaming pass over the corpus in position
+order — the same shape as the term engine's phase A
+(ops/batch_scorer.py):
 
 **TokenStreamPack** (built per (segment, field), cached by the index
 stats fingerprint): the corpus as a FORWARD token stream — for every
@@ -13,19 +11,19 @@ stats fingerprint): the corpus as a FORWARD token stream — for every
 (holes = sentinel; POSITION_GAP holes already separate multi-value
 fields), KGAP sentinel rows between docs so adjacency can never cross a
 doc, each block's stream cut into 2048-row chunks that OVERLAP by KGAP
-rows (a row's 7 successors are always visible in some chunk where the
-row is anchor-eligible).  Each int32 row packs (doc_local << 22 | tid).
+rows (a row's KGAP-1 successors are always visible in some chunk where
+the row is anchor-eligible).  Each int32 row packs (doc_local << 22 |
+tid).
 
-**Phrase kernel** (phase-A sibling): one streaming pass over the pack
-computes, for the whole phrase batch at once, the exact-ish max phrase
-score per (FINE_PER_BLOCK-split block, query):
-
-    oh[p, u]    = (tok_tid[p] == union_tid[u]) | (u == ALWAYS_ONE)
-    x_j[p, q]   = oh @ W_j           (1 iff token p is slot j of query q;
-                                      dead slots j >= k_q hit ALWAYS_ONE)
-    match[p, q] = prod_j x_j[p + j, q]        (shifted compares: pltpu.roll)
-    tf[d, q]   += onehot_doc[p, d]^T @ match[p, q]       (MXU scatter)
-    score       = w_p * tf / (tf + cacheval[d])          (exact-ish BM25)
+**Sweep** (:func:`_phrase_sweep`, a Pallas kernel through Triton): for
+the whole phrase batch at once, a row anchors a match of query q when
+slot 0's term sits at the row and each later slot j's term sits j (+ up
+to slop) rows on — shifted rows are shifted loads, since chunks overlap
+by KGAP.  One program owns one 512-doc block and one tile of queries;
+matches are counted per doc (phrase tf) by a one-hot product into a
+register accumulator, scored w_p * tf / (tf + cacheval[doc]), and
+reduced to the max score per (fine doc slice, query) plus the exact
+integer (tf << 8 | 255 - fid) class of that slice's argmax doc.
 
 Match anchors are counted once (chunk tails are masked and re-scored at
 the next chunk's overlapped head), so tf IS the oracle's phrase_tf
@@ -34,13 +32,14 @@ scores — a phrase postprocessor ships each query's top-K fine blocks
 SORTED BY BOUND, and the host matches them in that order with
 float-safe early termination (block-max pruning with device-exact
 bounds), re-checking survivors with the exact PhraseMatcher
-(ops/phrase.py) so final scores stay bit-identical to the oracle.  Reference behavior: phrase queries inside Tantivy via
-QueryParser -> PhraseQuery (`/root/reference/src/db/search.rs:112`).
+(ops/phrase.py) so final scores stay bit-identical to the oracle.
+Reference behavior: phrase queries inside Tantivy via QueryParser ->
+PhraseQuery (`/root/reference/src/db/search.rs:112`).
 
 Eligibility: single-group single-phrase plans (the quoted-query shape),
-slop 0, <= 8 terms, default k1/b, positive boost, limit <= 128, vocab
-< 2^22 terms in the field.  Everything else falls back to the host
-matcher, which stays bit-exact.
+slop <= MAX_SLOP, <= 8 terms, default k1/b, positive boost, limit <=
+128, vocab < 2^22 terms in the field.  Everything else falls back to
+the host matcher, which stays bit-exact.
 """
 
 from __future__ import annotations
@@ -53,7 +52,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from fugu_tpu import jax_setup
 from fugu_tpu.index.segment import BM_BLOCK_DOCS, BM_CHUNK, Segment
@@ -62,7 +61,7 @@ from fugu_tpu.ops.batch_scorer import (
     FINE_PER_BLOCK,
     _nb_pad,
 )
-from fugu_tpu.ops.scoring import NEG_INF
+from fugu_tpu.ops.scoring import NEG_INF, top_k_lowest
 from fugu_tpu.query import (
     Occur,
     PhraseClause,
@@ -77,14 +76,13 @@ jax_setup.configure()
 #: and the chunk overlap (a row's KGAP-1 successors stay visible)
 KMAX = 8
 KGAP = KMAX
-#: max slop on the device path (r5).  Slop semantics are the oracle's
+#: max slop on the device path.  Slop semantics are the oracle's
 #: ordered-window relaxation (term k anywhere in [anchor+k, anchor+k+
-#: slop]; ops/oracle.py:141) — the kernel ORs each slot's one-hot over
-#: its shift window, clamped to 1 per slot, so device phrase_tf stays
-#: EXACT for sloppy phrases too.  The forward reach (n_terms-1+slop)
-#: must stay <= KGAP: beyond that a roll's wrapped rows land on
-#: anchor-ELIGIBLE rows and the doc-gap sentinels no longer block
-#: cross-doc adjacency (see eligible_phrase).
+#: slop]; ops/oracle.py:141) — the sweep ORs each slot's hit over its
+#: shift window, so device phrase_tf stays EXACT for sloppy phrases
+#: too.  The forward reach (n_terms-1+slop) must stay <= KGAP: beyond
+#: that a shifted row can reach past the chunk overlap and the doc-gap
+#: sentinels no longer block cross-doc adjacency (see eligible_phrase).
 MAX_SLOP = 2
 #: term-ordinal bits in a packed stream row (doc_local rides bits 22-30,
 #: sign bit stays 0: 511 << 22 | TID_MASK == 0x7FFFFFFF)
@@ -94,44 +92,31 @@ TID_MASK = (1 << TID_BITS) - 1
 #: sentinel rows produce match 0, and match is the scatter's rhs)
 SENT_ROW = np.int32(TID_MASK)
 
-#: ladders (compile signatures; persistently cached like phase A's)
+#: ladders (compile signatures)
 PB_BUCKETS = (64, 128, 256)
-PU_BUCKETS = (128, 256, 512)
 PK_BUCKETS = (2, 4, 8)
 #: kmax ladder for sloppy dispatches (smax=MAX_SLOP): the wrap/doc-gap
 #: constraint is kmax_bucket - 1 + smax <= KGAP, so the top bucket is 7
 PK_SLOP_BUCKETS = (2, 4, 7)
 
-#: one stream pays phase-A-like fixed cost (~40ms at 1M docs); below
-#: this many staged phrases the host matcher is cheaper
+#: one sweep pays a fixed corpus-pass cost; below this many staged
+#: phrases the host matcher is cheaper (fitted on earlier hardware; not
+#: re-measured on the H100)
 PHRASE_MIN_BATCH = int(os.environ.get("FUGU_PHRASE_MIN_BATCH", "8"))
 
-#: auto-routing threshold: the corpus sweep's fixed cost (~200ms kernel
-#: + ~80ms postproc/fetch at 1M docs, b_pad 256) amortizes over the
-#: batch, while the host matcher costs ~4-6ms/query on this box — the
-#: device wins decisively only on LARGE phrase batches (measured
-#: 2026-08-19: 256-batch device 224 QPS vs host 162; 24-batch device 90
-#: vs host 110-230).  "auto" (the default) streams a batch at this many
-#: phrases unconditionally; smaller batches stream when the df cost
-#: model below says the host matcher would be slower.
+#: auto-routing threshold: a batch of at least this many phrases
+#: streams unless the df cost model below says otherwise
 PHRASE_AUTO_MIN = int(os.environ.get("FUGU_PHRASE_AUTO_MIN", "128"))
 
-#: df cost model for auto routing (calibrated on the 1M bench corpus,
-#: 2026-08-19).  The host matcher intersects rarest-first (ops/phrase.py
-#: PhraseMatcher), so its cost tracks the SMALLEST constituent df plus
-#: the adjacency work on the candidate intersection — NOT the summed
-#: posting mass (a head-tail pair with Σdf ~1M finishes in 3 ms while a
-#: head-head pair with the same Σdf takes 326 ms).  Measured points
-#: (min_df, E[inter]=Πdf/N, ms): (963k, 962k, 326) (414k, 328k, 36.5)
-#: (49k, 7.9k, 2.6) (4.2k, 65, 0.3) (134, ~0, 0.02).  Linear fit
-#: cost = 44ns·min_df + 55.6ns·inter undershoots the saturated-pair
-#: point 3.4x (positions/doc also grow with df), so the inter term
-#: carries a (1 + 3·min_df/N) correction — predicts the live-mix
-#: 8-phrase batch at 76 ms (measured 94) and the saturated pair at
-#: 250 ms (measured 326; routes to stream either way).  The stream
-#: engine's sweep is df-INDEPENDENT: measured 168 ms for 8 phrases /
-#: 513 ms for 256 at 55M corpus tokens → fixed ~2.0 ns/token staging +
-#: sweep, plus ~1.4 ms marginal per phrase (host verify + lane cost).
+#: df cost model for auto routing.  The host matcher intersects
+#: rarest-first (ops/phrase.py PhraseMatcher), so its cost tracks the
+#: SMALLEST constituent df plus the adjacency work on the candidate
+#: intersection (E[inter] = prod(df) / N^(k-1), with a (1 + 3*min_df/N)
+#: correction for the growth of positions per doc with df) — NOT the
+#: summed posting mass.  The sweep's cost is df-INDEPENDENT: a fixed
+#: part, a per-token part and a small per-phrase verify cost.  All five
+#: constants were fitted on earlier hardware and are not re-measured on
+#: the H100; FUGU_PHRASE_STREAM=1 bypasses the router.
 HOST_NS_PER_MIN_POSTING = float(os.environ.get("FUGU_PHRASE_HOST_NS", "44"))
 HOST_NS_PER_INTER_DOC = float(os.environ.get("FUGU_PHRASE_HOST_INTER_NS", "55.6"))
 STREAM_NS_PER_TOKEN = float(os.environ.get("FUGU_PHRASE_STREAM_NS", "2.0"))
@@ -189,18 +174,16 @@ def estimate_stream_ms(stats, n_phrases: int) -> float:
 
 
 def _stream_fits_budget(stats) -> bool:
-    """False when staging the token-stream pack would blow the HBM
+    """False when staging the token-stream pack would blow the device
     residency budget past what is already resident.
 
-    Matters at 16M docs on a 16GB chip: the phase-A packs alone are
-    ~12.9GB of the 13.6GB auto budget, and the ~4.5GB token pack would
-    evict them — every subsequent mixed batch then re-uploads multi-GB
-    packs over a 10-35MB/s relay (minutes per batch, vs the ~100ms/
-    phrase host cost the eviction was meant to beat).  Auto mode routes
-    to the host instead; ``FUGU_PHRASE_STREAM=1`` still forces the
-    stream for operators with phrase-dominant workloads.  Token bytes
-    already resident (an earlier phrase batch staged them) count as
-    free, so a warm phrase-heavy workload keeps streaming.
+    When the term packs already fill the budget, the token pack would
+    evict them and every later mixed batch would re-upload multi-GB
+    packs.  Auto mode routes to the host instead;
+    ``FUGU_PHRASE_STREAM=1`` still forces the stream for operators with
+    phrase-dominant workloads.  Token bytes already resident (an earlier
+    phrase batch staged them) count as free, so a warm phrase-heavy
+    workload keeps streaming.
     """
     from fugu_tpu.index.segment import _pow2_bucket
     from fugu_tpu.ops import residency
@@ -229,13 +212,9 @@ def want_stream(
     matcher runs on a worker thread UNDER the device wait (both sides
     release the GIL — engine/named_index), so up to ``overlap_ms`` of
     host phrase work is free, while the stream's sweep ADDS device time
-    to the same serial device queue.  Without this credit the 1M mixed
-    bench batch streamed its 24 phrases (est. host 215ms > stream
-    189ms) and paid the sweep on the critical path where the host
-    matcher's 215ms had been hiding under a ~450ms device batch —
-    measured same-day 2026-08-20: mixed headline 429 QPS streamed vs
-    ~530 host-overlapped.  Callers estimate overlap with
-    :func:`estimate_device_batch_ms`."""
+    to the same serial device queue — without this credit a mixed batch
+    would stream phrases whose host cost hides under the device wait.
+    Callers estimate overlap with :func:`estimate_device_batch_ms`."""
     mode = phrase_stream_mode()
     if mode == "0":
         return False
@@ -250,8 +229,8 @@ def want_stream(
         # sweep even above PHRASE_AUTO_MIN).  The credit gates on
         # overlap_ms ALONE: a caller passing overlap without plans/stats
         # must not fall through to the unconditional PHRASE_AUTO_MIN
-        # stream — that is exactly the regression the credit prevents
-        # (ADVICE r4) — so missing model inputs mean "don't stream".
+        # stream — that is exactly what the credit prevents — so
+        # missing model inputs mean "don't stream".
         if plans is None or stats is None:
             return False
         return (
@@ -264,11 +243,8 @@ def want_stream(
     if n_phrases < PHRASE_MIN_BATCH or plans is None or stats is None:
         return False
     # the cost model decides at ANY batch size when its inputs exist:
-    # round 5's off-corpus validation (tools/phrase_cost_validate.py)
-    # caught the old >= PHRASE_AUTO_MIN unconditional stream losing 5x
-    # on a flat-Zipf corpus whose heavy terms are still cheap for the
-    # host matcher (160 phrases: host 30.5ms vs stream 163.6ms) —
-    # df-blind batch-size rules don't transfer across df profiles.
+    # df-blind batch-size rules don't transfer across df profiles
+    # (tools/phrase_cost_validate.py checks the model off-corpus)
     return estimate_host_ms(plans, stats) > estimate_stream_ms(stats, n_phrases)
 
 
@@ -277,16 +253,15 @@ def estimate_device_batch_ms(
 ) -> float:
     """Crude wall-time model of a concurrent two-phase device batch, for
     want_stream's overlap credit.  Phase A sweeps the same corpus the
-    phrase stream does with the same cost shape (fixed dispatch floor +
-    per-token sweep + per-query staging/wave cost), so the calibrated
-    stream constants transfer: at 1M docs/44M postings this predicts a
-    256-query mixed batch at ~500ms (round-3 measured 450-530ms).
+    phrase stream does with the same cost shape (fixed cost + per-token
+    sweep + per-query staging/wave cost), so the stream constants are
+    reused (not re-measured on the H100).
 
     ``token_share``: fraction of the index's tokens the concurrent batch
     actually sweeps — multi-segment callers pass the CURRENT segment's
     share, since each segment's device batch sweeps only that segment
     (index-wide stats would overestimate the credit per segment and bias
-    phrases onto the host thread, ADVICE r4)."""
+    phrases onto the host thread)."""
     if n_queries <= 0:
         return 0.0
     toks = sum(stats.total_tokens.values()) * min(max(token_share, 0.0), 1.0)
@@ -421,7 +396,7 @@ def build_stream_arrays(
         ).reshape(-1)
 
     # per-doc BM25 denominator constants, laid out [block * 1024 +
-    # doc_local] so the kernel DMAs one aligned 1024-f32 row per block
+    # doc_local] so a block reads one aligned 1024-f32 row
     cache = fieldnorm_cache(stats.avg_fieldnorm(field))
     fids = segment.fieldnorm_ids[field][doc_lo:doc_hi].astype(np.int64)
     cv = np.zeros(out.nb_pad * 1024, dtype=np.float32)
@@ -536,229 +511,120 @@ def get_token_stream(segment: Segment, field: str, stats) -> Optional[
 # --------------------------------------------------------------------------
 
 
-def _phrase_kernel(
-    offs,        # int32[NB+1] scalar prefetch: chunk offsets per block
-    tok_hbm,     # int32[T]    packed (doc_local << 22 | tid) stream
-    cv_hbm,      # f32[NB*1024] per-doc BM25 denominator constants
-    fid_hbm,     # int32[NB*1024] per-doc fieldnorm ids
-    w_ref,       # bf16[KMAX_b*(smax+1)*U, B] per-(slot, shift) weights
-    tids_ref,    # int32[8, U] union term ordinals (row 0)
-    wp_ref,      # f32[8, B]   per-query phrase BM25 weights (row 0)
-    out_ref,     # f32[1, FINE_PER_BLOCK, B] per-fine-block score maxima
-    cls_ref,     # i32[1, FINE_PER_BLOCK, B] (tf<<8 | 255-fid) of argmax
-    *scratch,
-    kmax: int,
-    u_pad: int,
-    smax: int,
-    interpret: bool,
-):
-    tok_s, cv_s, fid_s, sems = scratch
+#: token rows per inner step and queries per program of the sweep
+_ROW_TILE = 64
+_PHRASE_Q_TILE = 32
+
+
+def _phrase_kernel(offs_ref, tok_ref, cv_ref, fid_ref, want_ref, wp_ref,
+                   slop_ref, max_ref, cls_ref, *, kmax, smax, q_tile):
+    """One program per (512-doc block, query tile): walk the block's
+    chunks in row tiles, match every anchor row against each query's
+    slots (shifted rows are shifted loads), count matches per doc with a
+    one-hot product into a [block docs, q_tile] accumulator, then the
+    score / fine-max / class epilogue."""
     j = pl.program_id(0)
-    c0 = offs[j]
-    c1 = offs[j + 1]
-    b_pad = wp_ref.shape[-1]
+    q0 = pl.program_id(1) * q_tile
+    q = q0 + jnp.arange(q_tile)
+    c0 = plgpu.load(offs_ref.at[j])
+    c1 = plgpu.load(offs_ref.at[j + 1])
+    wants = [plgpu.load(want_ref.at[jj, q])[None, :] for jj in range(kmax)]
+    in_slop = [
+        (ss <= plgpu.load(slop_ref.at[q]))[None, :] for ss in range(smax + 1)
+    ]
+    d_iota = jnp.arange(BM_BLOCK_DOCS)
+    n_tiles = (BM_CHUNK - KGAP + _ROW_TILE - 1) // _ROW_TILE
 
-    def tok_dma(ci, slot):
-        woff = pl.multiple_of(slot * BM_CHUNK, 1024)
-        a = pl.multiple_of(ci * BM_CHUNK, 1024)
-        return pltpu.make_async_copy(
-            tok_hbm.at[pl.ds(a, BM_CHUNK)],
-            tok_s.at[pl.ds(woff, BM_CHUNK)],
-            sems.at[slot],
-        )
+    def tile(ti, acc, base):
+        p = ti * _ROW_TILE + jnp.arange(_ROW_TILE)
 
-    def cv_dma():
-        a = pl.multiple_of(j * 1024, 1024)
-        return pltpu.make_async_copy(
-            cv_hbm.at[pl.ds(a, 1024)], cv_s.at[...], sems.at[2]
-        )
+        def tid_at(d):
+            return plgpu.load(
+                tok_ref.at[base + p + d], mask=p + d < BM_CHUNK,
+                other=SENT_ROW,
+            ) & TID_MASK
 
-    def fid_dma():
-        a = pl.multiple_of(j * 1024, 1024)
-        return pltpu.make_async_copy(
-            fid_hbm.at[pl.ds(a, 1024)], fid_s.at[...], sems.at[3]
-        )
-
-    cv_dma().start()
-    fid_dma().start()
-
-    @pl.when(c1 > c0)
-    def _():
-        tok_dma(c0, 0).start()
-
-    d_iota = jax.lax.broadcasted_iota(
-        jnp.int32, (BM_CHUNK, BM_BLOCK_DOCS), 1
-    )
-    u_iota = jax.lax.broadcasted_iota(jnp.int32, (BM_CHUNK, u_pad), 1)
-    # anchor-row mask [C, 1]: the last KGAP rows of every chunk replicate
-    # at the next chunk's head — masking them here counts each anchor
-    # exactly once (so tf IS the oracle's phrase_tf)
-    row_ok = (
-        jax.lax.broadcasted_iota(jnp.int32, (BM_CHUNK, 1), 0)
-        < BM_CHUNK - KGAP
-    )
-
-    def chunk_step(ci, S):
-        slot = (ci - c0) % 2
-        woff = pl.multiple_of(slot * BM_CHUNK, 1024)
-
-        @pl.when(ci + 1 < c1)
-        def _():
-            tok_dma(ci + 1, 1 - slot).start()
-
-        tok_dma(ci, slot).wait()
-
-        # slot-count formulation (the first cut's per-slot [C, B] f32
-        # rolls + product chain were ~60GB of VPU traffic per sweep and
-        # scaled superlinearly with lanes — measured 5.7s for a 256-lane
-        # 1M-doc sweep): shift the PACKED TOKEN COLUMN [C, 1] instead
-        # (8KB per roll, 256x less traffic; wrapped rows only reach
-        # masked anchors), one-hot each shifted view against the union,
-        # matmul against that slot's weight plane, and SUM — an anchor
-        # matches query q iff all kmax planes contribute 1 (dead slots
-        # ride the ALWAYS-ONE column), i.e. s == kmax.
-        x0 = tok_s[pl.ds(woff, BM_CHUNK)].reshape(BM_CHUNK, 1)
-        doc = jax.lax.shift_right_logical(x0, TID_BITS)   # [C, 1]
-
-        def shifted_onehot(d):
-            if d == 0:
-                xs = x0
-            elif interpret:
-                xs = jnp.roll(x0, -d, axis=0)
-            else:
-                xs = pltpu.roll(x0, BM_CHUNK - d, axis=0)
-            tid = jnp.bitwise_and(xs, TID_MASK)           # [C, 1]
-            return (
-                (tid == tids_ref[0:1, :]) | (u_iota == u_pad - 1)
-            ).astype(jnp.bfloat16)                        # [C, U]
-
-        s = None
+        x0 = plgpu.load(tok_ref.at[base + p])
+        doc = jax.lax.shift_right_logical(x0, TID_BITS)
+        match = (p < BM_CHUNK - KGAP)[:, None]
         for jj in range(kmax):
-            # slot jj matches iff ANY shift in its window [jj, jj+slop_q]
-            # hits its term — the per-(slot, shift) weight plane carries
-            # slop_q (plane (jj, ss) is zero for ss > slop_q; slot 0 and
-            # dead slots use only ss=0), and the min(y, 1) clamp turns
-            # the shift-count into the OR the oracle's ordered-window
-            # semantics need.  smax == 0 emits EXACTLY the round-4
-            # program (no clamp, one plane per slot) so the warm slop-0
-            # compile cache stays valid.
-            y = None
-            for ss in range(smax + 1):
-                oh = shifted_onehot(jj + ss)
-                plane = (jj * (smax + 1) + ss) * u_pad
-                xj = jax.lax.dot_general(
-                    oh,
-                    w_ref[pl.ds(plane, u_pad)],
-                    dimension_numbers=(((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )                                         # [C, B]
-                y = xj if y is None else y + xj
-            if smax:
-                y = jnp.minimum(y, 1.0)
-            s = y if s is None else s + y
-        m = jnp.where(
-            (s > kmax - 0.5) & row_ok, 1.0, 0.0
-        )                                                 # [C, B]
-        oh_d = (doc == d_iota).astype(jnp.bfloat16)       # [C, D]
-        S = S + jax.lax.dot_general(
-            oh_d,
-            m.astype(jnp.bfloat16),
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )                                                 # [D, B]
-        return S
+            hit = tid_at(jj)[:, None] == wants[jj]
+            if jj:
+                for ss in range(1, smax + 1):
+                    hit = hit | (
+                        (tid_at(jj + ss)[:, None] == wants[jj]) & in_slop[ss]
+                    )
+            match = match & (hit | (wants[jj] == -1))
+        oh = (doc[None, :] == d_iota[:, None]).astype(jnp.bfloat16)
+        return acc + pl.dot(oh, match.astype(jnp.bfloat16))
+
+    def chunk(ci, acc):
+        return jax.lax.fori_loop(
+            0, n_tiles, functools.partial(tile, base=ci * BM_CHUNK), acc
+        )
 
     tf = jax.lax.fori_loop(
-        c0,
-        c1,
-        chunk_step,
-        jnp.zeros((BM_BLOCK_DOCS, b_pad), jnp.float32),
+        c0, c1, chunk, jnp.zeros((BM_BLOCK_DOCS, q_tile), jnp.float32)
     )
-    cv_dma().wait()
-    fid_dma().wait()
-    cv = cv_s[pl.ds(0, BM_BLOCK_DOCS)].reshape(BM_BLOCK_DOCS, 1)
-    fid = fid_s[pl.ds(0, BM_BLOCK_DOCS)].reshape(BM_BLOCK_DOCS, 1)
-    score = wp_ref[0:1, :] * (tf / (tf + cv))
+    cv = plgpu.load(cv_ref.at[j * 1024 + d_iota])[:, None]
+    fid = plgpu.load(fid_ref.at[j * 1024 + d_iota])[:, None]
+    score = plgpu.load(wp_ref.at[q])[None, :] * (tf / (tf + cv))
     matched = tf > 0.5
     res = jnp.where(matched, score, NEG_INF)
-    resh = res.reshape(FINE_PER_BLOCK, BM_FINE_DOCS, b_pad)
-    fmax = resh.max(axis=1)
-    out_ref[0, :, :] = fmax
-    # exact INTEGER class (tf << 8 | 255 - fid) of each fine slice's
-    # score-argmax doc: the host recomputes the bound from (tf, fid)
-    # with its own f32 arithmetic, so pruning needs no rounding margin.
-    # Ties pick the largest class int; distinct classes tie in device
-    # f32 only within a few ulp of each other — covered by the host's
-    # 1e-5 guard band (see _rescore_blocks)
-    cls = jnp.where(
-        matched,
-        tf.astype(jnp.int32) * 256 + (255 - fid),
-        -1,
-    ).reshape(FINE_PER_BLOCK, BM_FINE_DOCS, b_pad)
-    is_max = resh >= fmax[:, None, :]
-    cls_ref[0, :, :] = jnp.where(is_max, cls, -1).max(axis=1)
+    cls = jnp.where(matched, tf.astype(jnp.int32) * 256 + (255 - fid), -1)
+    for f in range(FINE_PER_BLOCK):
+        inside = (
+            (d_iota >= f * BM_FINE_DOCS) & (d_iota < (f + 1) * BM_FINE_DOCS)
+        )[:, None]
+        fmax = jnp.where(inside, res, NEG_INF).max(axis=0)
+        fcls = jnp.where(inside & (res >= fmax[None, :]), cls, -1).max(axis=0)
+        plgpu.store(max_ref.at[j, f, pl.ds(q0, q_tile)], fmax)
+        plgpu.store(cls_ref.at[j, f, pl.ds(q0, q_tile)], fcls)
 
 
-def _phrase_callable(nb_pad, u_pad, b_pad, kmax, smax, interpret):
+def _phrase_sweep(offs, tok, cv, fid, want, wp, slop, *, nb_pad, kmax, smax):
+    """One pass over a token stream for a batch of phrases:
+    ``(chunk_offs, tok, cv, fid, want, wp, slop) -> (maxima, classes)``,
+    each [nb_pad, FINE_PER_BLOCK, b_pad].
+
+    ``want[j, q]`` is the term ordinal of slot j of query q (-1: dead
+    slot, matches anything; -2: padding query, matches nothing).  A row
+    anchors a match of q when slot 0's term sits at the row and each
+    later slot j's term sits at row + j + s for some s <= slop[q] — the
+    oracle's ordered-window relaxation (ops/oracle.py).  Anchors in a
+    chunk's last KGAP rows are skipped (the next chunk's overlapped head
+    counts them), so tf IS the oracle's phrase_tf."""
+    b_pad = wp.shape[0]
+    q_tile = min(_PHRASE_Q_TILE, b_pad)
     kernel = functools.partial(
-        _phrase_kernel, kmax=kmax, u_pad=u_pad, smax=smax, interpret=interpret
+        _phrase_kernel, kmax=kmax, smax=smax, q_tile=q_tile
     )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nb_pad,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(
-                (kmax * (smax + 1) * u_pad, b_pad), lambda j, *_: (0, 0)
-            ),
-            pl.BlockSpec((8, u_pad), lambda j, *_: (0, 0)),
-            pl.BlockSpec((8, b_pad), lambda j, *_: (0, 0)),
-        ],
-        out_specs=[
-            pl.BlockSpec(
-                (1, FINE_PER_BLOCK, b_pad), lambda j, *_: (j, 0, 0)
-            ),
-            pl.BlockSpec(
-                (1, FINE_PER_BLOCK, b_pad), lambda j, *_: (j, 0, 0)
-            ),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((2 * BM_CHUNK,), jnp.int32),
-            pltpu.VMEM((1024,), jnp.float32),
-            pltpu.VMEM((1024,), jnp.int32),
-            pltpu.SemaphoreType.DMA((4,)),
-        ],
-    )
+    shape = (nb_pad, FINE_PER_BLOCK, b_pad)
+    return pl.pallas_call(
+        kernel,
+        grid=(nb_pad, b_pad // q_tile),
+        out_shape=(
+            jax.ShapeDtypeStruct(shape, jnp.float32),
+            jax.ShapeDtypeStruct(shape, jnp.int32),
+        ),
+        compiler_params=plgpu.CompilerParams(num_warps=8, num_stages=2),
+        backend="triton",
+        interpret=jax_setup.pallas_interpret(),
+        name="fugu_phrase_sweep",
+    )(offs, tok, cv, fid, want, wp, slop)
 
-    def call(offs, tok, cv, fid, w, tids, wp):
-        return pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=[
-                jax.ShapeDtypeStruct(
-                    (nb_pad, FINE_PER_BLOCK, b_pad), jnp.float32
-                ),
-                jax.ShapeDtypeStruct(
-                    (nb_pad, FINE_PER_BLOCK, b_pad), jnp.int32
-                ),
-            ],
-            interpret=interpret,
-        )(offs, tok, cv, fid, w, tids, wp)
 
-    return call
+def _phrase_callable(nb_pad, kmax, smax):
+    return functools.partial(_phrase_sweep, nb_pad=nb_pad, kmax=kmax, smax=smax)
 
 
 _KERNEL_CACHE: dict = {}
 
 
-def _get_kernel(nb_pad, u_pad, b_pad, kmax, smax, interpret):
-    key = (nb_pad, u_pad, b_pad, kmax, smax, interpret)
+def _get_kernel(nb_pad, b_pad, kmax, smax):
+    key = (nb_pad, b_pad, kmax, smax)
     if key not in _KERNEL_CACHE:
-        _KERNEL_CACHE[key] = jax.jit(
-            _phrase_callable(nb_pad, u_pad, b_pad, kmax, smax, interpret)
-        )
+        _KERNEL_CACHE[key] = jax.jit(_phrase_callable(nb_pad, kmax, smax))
     return _KERNEL_CACHE[key]
 
 
@@ -770,9 +636,9 @@ def _get_kernel(nb_pad, u_pad, b_pad, kmax, smax, interpret):
 def eligible_clause(pc: PhraseClause) -> bool:
     """Whether one phrase clause fits the stream kernel: <= KMAX terms,
     slop <= MAX_SLOP, positive boost, and forward reach (n_terms - 1 +
-    slop) <= KGAP — beyond KGAP a roll's wrapped rows land on
-    anchor-eligible rows and the inter-doc sentinel gap no longer
-    blocks cross-doc adjacency.  Sloppy dispatches additionally cap the
+    slop) <= KGAP — beyond KGAP a shifted row can reach past the chunk
+    overlap and the inter-doc sentinel gap no longer blocks cross-doc
+    adjacency.  Sloppy dispatches additionally cap the
     kmax bucket at KGAP + 1 - MAX_SLOP (= 7 terms at slop > 0)."""
     if not pc.terms or len(pc.terms) > KMAX:
         return False
@@ -817,15 +683,14 @@ def phrase_stream_begin(
     plans: Sequence[QueryPlan],
     stats,
     limits: Sequence[int],
-    interpret: Optional[bool] = None,
+    min_batch: int = PHRASE_MIN_BATCH,
 ):
     """Stage and dispatch the phrase batch; returns a handle for
     :func:`phrase_stream_collect`.  ``pre`` (handle[0]) carries results
-    resolved without the kernel ([] for absent terms) aligned to
+    resolved without the sweep ([] for absent terms) aligned to
     ``plans``; ``staged`` entries are (plan_index, clause) pairs the
-    kernel will answer; non-eligible plans stay None throughout."""
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
+    sweep will answer; non-eligible plans stay None throughout.  A field
+    with fewer than ``min_batch`` runnable phrases stays on the host."""
     pre: List[Optional[List[Tuple[float, int]]]] = [None] * len(plans)
     staged: List[Tuple[int, PhraseClause]] = []
     by_field: Dict[str, List[int]] = {}
@@ -837,7 +702,6 @@ def phrase_stream_begin(
         clauses[i] = pc
         by_field.setdefault(pc.field, []).append(i)
 
-    min_batch = 1 if interpret else PHRASE_MIN_BATCH
     dispatches = []
     for field, idxs in sorted(by_field.items()):
         pack = get_token_stream(segment, field, stats)
@@ -850,16 +714,13 @@ def phrase_stream_begin(
                 pre[i] = []
             else:
                 run.append(i)
-        if len(run) < min_batch:
+        if len(run) < max(min_batch, 1):
             for i in run:
                 del clauses[i]  # host path serves these
             continue
         for q_idx, smax in split_dispatch_groups(run, clauses):
             dispatches.append(
-                _dispatch_group(
-                    segment, pack, q_idx, clauses, stats, interpret,
-                    smax,
-                )
+                _dispatch_group(pack, q_idx, clauses, stats, smax)
             )
             for i in q_idx:
                 staged.append((i, clauses[i]))
@@ -872,114 +733,73 @@ def _clause_slop(pc: PhraseClause) -> int:
 
 def split_dispatch_groups(run, clauses) -> List[Tuple[List[int], int]]:
     """[(q_idx, smax)] dispatch groups for ``run`` (eligible plan
-    indices, in order) — shared by the single-chip and sharded begins.
+    indices, in order) — shared by the single-device and sharded begins.
 
     slop-0 and sloppy queries dispatch separately: the sloppy program
-    (smax=MAX_SLOP) pays (slop+1)x one-hot/matmul work per slot and
-    compiles a different signature — keeping slop-0 batches on the
-    round-4 program preserves both its speed and its warm compile
-    cache.  Each sub-run pays its own sweep; a mixed batch therefore
-    costs up to two sweeps (measured tradeoff vs 3x-ing the common
-    slop-0 case: slop-0 wins).  Within a sub-run, split greedily when
-    the union exceeds the largest U bucket (one usable slot is reserved
-    for the ALWAYS-ONE column)."""
+    (smax=MAX_SLOP) compares (slop+1)x shifted rows per slot and
+    compiles a different signature.  Each sub-run pays its own sweep, in
+    groups of at most PB_BUCKETS[-1] queries."""
     out: List[Tuple[List[int], int]] = []
-    subruns = [
-        ([i for i in run if not _clause_slop(clauses[i])], 0),
-        ([i for i in run if _clause_slop(clauses[i])], MAX_SLOP),
-    ]
-    for sub, smax in subruns:
-        groups: List[List[int]] = []
-        cur: List[int] = []
-        cur_terms: set = set()
-        for i in sub:
-            ts = set(clauses[i].terms)
-            new = ts - cur_terms
-            if cur and (
-                len(cur) >= PB_BUCKETS[-1]
-                or len(cur_terms) + len(new) > PU_BUCKETS[-1] - 1
-            ):
-                groups.append(cur)
-                cur, cur_terms = [], set()
-            cur_terms |= ts
-            cur.append(i)
-        if cur:
-            groups.append(cur)
-        out.extend((g, smax) for g in groups)
+    cap = PB_BUCKETS[-1]
+    for smax in (0, MAX_SLOP):
+        sub = [i for i in run if bool(_clause_slop(clauses[i])) == bool(smax)]
+        out.extend(
+            (sub[lo : lo + cap], smax) for lo in range(0, len(sub), cap)
+        )
     return out
 
 
 def stage_group_weights(tid_of, q_idx, clauses, stats, smax):
-    """(w, tid_arr, wp, u_pad, b_pad, kmax) kernel operands for one
-    dispatch group — shared by the single-chip and sharded launchers
-    (term ordinals are segment-global per field, so the sharded path
-    replicates these across shards verbatim)."""
-    terms: Dict[str, int] = {}
-    kmax_need = 1
-    for i in q_idx:
-        for t in clauses[i].terms:
-            if t not in terms:
-                terms[t] = len(terms)
-        kmax_need = max(kmax_need, len(clauses[i].terms))
-    u_pad = next(u for u in PU_BUCKETS if len(terms) + 1 <= u)
+    """(want, wp, slop, b_pad, kmax) sweep operands for one dispatch
+    group — shared by the single-device and sharded launchers (term
+    ordinals are segment-global per field, so the sharded path
+    replicates these across shards verbatim).  See :func:`_phrase_sweep`
+    for ``want``'s encoding."""
+    kmax_need = max(len(clauses[i].terms) for i in q_idx)
     b_pad = next(b for b in PB_BUCKETS if len(q_idx) <= b)
     kb = PK_SLOP_BUCKETS if smax else PK_BUCKETS
     kmax = next(k for k in kb if kmax_need <= k)
-
-    # flattened [kmax * (smax+1) * u_pad, b_pad]: plane (jj, ss) lives at
-    # rows [(jj*(smax+1)+ss) * u_pad, ...) and carries slot jj's one-hot
-    # weights for shift jj+ss.  Slot 0 anchors exactly (ss=0 only — the
-    # oracle's anchor IS term 0's position); slot jj >= 1 fills planes
-    # ss <= slop_q; dead slots ride the ALWAYS-ONE column on ss=0.
-    w = np.zeros((kmax * (smax + 1) * u_pad, b_pad), dtype=np.float32)
-    tid_arr = np.full((8, u_pad), -2, dtype=np.int32)
-    tid_arr[0, u_pad - 1] = -3  # reserved ALWAYS-ONE slot
-    wp = np.zeros((8, b_pad), dtype=np.float32)
-    for t, slot in terms.items():
-        tid_arr[0, slot] = tid_of[t]
+    want = np.full((kmax, b_pad), -1, dtype=np.int32)
+    want[0, len(q_idx) :] = -2  # padding queries match nothing
+    wp = np.zeros(b_pad, dtype=np.float32)
+    slop = np.zeros(b_pad, dtype=np.int32)
     for qi, i in enumerate(q_idx):
         pc = clauses[i]
-        slop_q = min(_clause_slop(pc), smax)
-        for jj in range(kmax):
-            base_row = jj * (smax + 1) * u_pad
-            if jj < len(pc.terms):
-                n_shift = 1 if jj == 0 else slop_q + 1
-                for ss in range(n_shift):
-                    w[base_row + ss * u_pad + terms[pc.terms[jj]], qi] = 1.0
-            else:
-                w[base_row + u_pad - 1, qi] = 1.0
+        for jj, t in enumerate(pc.terms):
+            want[jj, qi] = tid_of[t]
+        slop[qi] = min(_clause_slop(pc), smax)
         dfs = [stats.doc_freq(pc.field, t) for t in pc.terms]
-        wp[0, qi] = float(
-            bm25_weight(max(dfs), stats.doc_count, pc.boost)
-        )
-    return w, tid_arr, wp, u_pad, b_pad, kmax
+        wp[qi] = float(bm25_weight(max(dfs), stats.doc_count, pc.boost))
+    return want, wp, slop, b_pad, kmax
 
 
-def _dispatch_group(segment, pack, q_idx, clauses, stats, interpret, smax=0):
-    """Stage operands and launch kernel + postproc for one group."""
-    w, tid_arr, wp, u_pad, b_pad, kmax = stage_group_weights(
+def _dispatch_group(pack, q_idx, clauses, stats, smax=0):
+    """Stage operands and launch the sweep for one group."""
+    want, wp, slop, b_pad, kmax = stage_group_weights(
         pack.tid_of, q_idx, clauses, stats, smax
     )
-    fn = _get_kernel(pack.nb_pad, u_pad, b_pad, kmax, smax, interpret)
-    amax, acls = fn(
-        jnp.asarray(pack.chunk_offs),
-        pack.d_tok,
-        pack.d_cv,
-        pack.d_fid,
-        jnp.asarray(w, dtype=jnp.bfloat16),
-        jnp.asarray(tid_arr),
-        jnp.asarray(wp),
-    )
+    fn = _get_kernel(pack.nb_pad, b_pad, kmax, smax)
+    with jax.profiler.TraceAnnotation(
+        f"fugu:phrase_sweep b={b_pad} k={kmax} s={smax}"
+    ):
+        amax, acls = fn(
+            jnp.asarray(pack.chunk_offs),
+            pack.d_tok,
+            pack.d_cv,
+            pack.d_fid,
+            jnp.asarray(want),
+            jnp.asarray(wp),
+            jnp.asarray(slop),
+        )
     return (q_idx, (amax, acls), b_pad)
 
 
 #: fine blocks whose (value, class, id) the phrase postprocessor ships
 #: per query, sorted by bound descending.  64 covers limit<=10 scans by
 #: a wide margin (ties terminate via the doc-id rule after ~limit hits)
-#: while keeping the fetched buffer small — 256 was measured spending
-#: 262ms of a 785ms batch just crossing the relay.  Queries whose scan
-#: is inconclusive within the shipped blocks fall back to a
-#: full-common match (correct, rare).
+#: while keeping the fetched buffer small.  Queries whose scan is
+#: inconclusive within the shipped blocks fall back to a full-common
+#: match (correct, rare).
 PHRASE_TOPK = 64
 
 _PHRASE_POST_CACHE: dict = {}
@@ -992,11 +812,10 @@ def _get_phrase_post(nb_pad: int, b_pad: int):
     each block's bound bit-exactly from the class with its own float
     arithmetic and scans in bound order with margin-free termination.
 
-    The first cut shipped phase A's kth-thresholded MASK here; for
-    near-tied phrase scores (tf=1 everywhere) the threshold kept nearly
-    every matching block and the host re-matched them all with no order
-    to stop in — measured 773ms of PhraseMatcher.match against 116ms of
-    kernel for a 24-phrase 1M-doc batch."""
+    (A kth-thresholded MASK, as phase A ships, fails here: for
+    near-tied phrase scores (tf=1 everywhere) the threshold keeps nearly
+    every matching block and the host re-matches them all with no order
+    to stop in.)"""
     key = (nb_pad, b_pad)
     fn = _PHRASE_POST_CACHE.get(key)
     if fn is not None:
@@ -1010,10 +829,10 @@ def _get_phrase_post(nb_pad: int, b_pad: int):
         ccol = acls.reshape(nb2, -1).T                  # [B, NB*F] i32
         finite = jnp.isfinite(col)
         count = jnp.sum(finite.astype(jnp.int32), axis=1)   # [B]
-        vals, idx = jax.lax.top_k(col, k)               # [B, k] desc
+        vals, idx = top_k_lowest(col, k)                # [B, k] desc
         cls = jnp.take_along_axis(ccol, idx, axis=1)
-        # one buffer, one relay round trip: [B, 3k+1] f32 (ids < 2^24
-        # and classes < 2^24 stay f32-exact)
+        # one buffer: [B, 3k+1] f32 (ids < 2^24 and classes < 2^24 stay
+        # f32-exact)
         return jnp.concatenate(
             [
                 vals,
@@ -1252,9 +1071,9 @@ def batch_phrase_search(
     plans: Sequence[QueryPlan],
     stats,
     limits: Sequence[int],
-    interpret: Optional[bool] = None,
+    min_batch: int = PHRASE_MIN_BATCH,
 ) -> List[Optional[List[Tuple[float, int]]]]:
     """Synchronous begin+collect (None entries = caller's host path)."""
     return phrase_stream_collect(
-        phrase_stream_begin(segment, plans, stats, limits, interpret)
+        phrase_stream_begin(segment, plans, stats, limits, min_batch)
     )

@@ -1,8 +1,8 @@
 """Exact host rescoring of device-selected top-k hits.
 
-TPU f32 division is reciprocal-based and differs from IEEE-rounded
-division on ~1/3 of inputs (measured on this v5e), so scores computed
-IN-KERNEL can never match the host oracle bit-for-bit.  The engines
+Device sums run in another order than the host oracle's (and, with
+atomics, in an order that changes from run to run), so scores computed
+on the device cannot match the oracle bit-for-bit.  The engines
 therefore use the device for what it is unbeatable at — finding the
 top-k candidates over millions of docs — and recompute the ≤k winning
 scores on the host with exactly the oracle's float sequence

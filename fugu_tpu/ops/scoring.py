@@ -3,7 +3,7 @@
 This replaces the hot loop inside Tantivy's ``searcher.search`` — the
 per-segment postings traversal, BM25 scoring and heap top-k
 (`/root/reference/src/db/search.rs:153-162`, SURVEY.md §3.3) — with a
-fully vectorized, TPU-friendly pipeline:
+fully vectorized pipeline:
 
 1. **Window gather** — each clause's postings are a contiguous range of the
    segment's (doc, tf|fid) entry pack; ``dynamic_slice`` windows
@@ -24,9 +24,9 @@ The Pallas block scorer (ops/pallas_scorer.py) is the faster engine for
 large corpora; this XLA pipeline remains the second engine (smaller
 compile footprint, used for small/medium segments and as the fallback).
 
-Ties: runs are emitted in ascending doc order and ``lax.top_k`` keeps the
-earliest index on equal scores, so ordering is score desc then doc asc —
-the deterministic tiebreak we define for parity (SURVEY.md §7).
+Ties: runs are emitted in ascending doc order and :func:`top_k_lowest`
+keeps the earliest index on equal scores, so ordering is score desc then
+doc asc — the deterministic tiebreak we define for parity (SURVEY.md §7).
 """
 
 from __future__ import annotations
@@ -187,8 +187,42 @@ def segment_topk_merge_impl(
 
     score = jnp.where(ok, total, NEG_INF)
     kk = min(k, t_pad * l_pad)
-    top_scores, idx = jax.lax.top_k(score, kk)
+    top_scores, idx = top_k_lowest(score, kk)
     return top_scores, doc_s[idx]
+
+
+def top_k_lowest(x, k: int):
+    """``lax.top_k`` over the last axis of a 1-D or 2-D array, with equal
+    values resolved toward the LOWEST index and the result ordered by
+    (value desc, index asc).
+
+    The engines' tie contract (score desc, doc asc) rests on this: XLA's
+    GPU top_k promises no order among equal values, and a corpus holds
+    many exact ties (same tf, same fieldnorm).  The kth value fixes the
+    set: everything above it, plus the lowest-index entries equal to it."""
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[None]
+    n_rows = x.shape[0]
+    kth = jax.lax.top_k(x, k)[0][:, k - 1 : k]
+    above = x > kth
+    tied = x == kth
+    room = k - jnp.sum(above, axis=1, keepdims=True, dtype=jnp.int32)
+    take = above | (tied & (jnp.cumsum(tied, axis=1, dtype=jnp.int32) <= room))
+    rank = jnp.cumsum(take, axis=1, dtype=jnp.int32) - 1
+    rows = jax.lax.broadcasted_iota(jnp.int32, x.shape, 0)
+    cols = jax.lax.broadcasted_iota(jnp.int32, x.shape, 1)
+    idx = (
+        jnp.zeros((n_rows, k + 1), jnp.int32)
+        .at[rows, jnp.where(take, rank, k)]
+        .set(cols)[:, :k]
+    )
+    vals = jnp.take_along_axis(x, idx, axis=1)
+    neg, idx = jax.lax.sort((-vals, idx), dimension=1, num_keys=2)
+    vals = -neg
+    if squeeze:
+        return vals[0], idx[0]
+    return vals, idx
 
 
 def mask_i32(mask: int) -> int:
@@ -370,9 +404,8 @@ def segment_topk_batch(
 ):
     """Query-batched merge-network kernel: one dispatch scores B queries.
 
-    On this stack a device round trip costs ~30ms while the per-query
-    compute is ~1ms — batching is the difference between losing to a
-    single CPU core and beating it by orders of magnitude.
+    Per-dispatch overhead dwarfs one query's compute, so a batch pays
+    it once.
     """
 
     def one(s, l, w, a1, a2, g, m, mn, sh):
@@ -500,7 +533,7 @@ def device_search_batch(
                     for s, d in zip(scores[j][keep], docs[j][keep])
                 ]
                 # device floats -> oracle-exact host floats before the
-                # final ranking (TPU division is not IEEE-exact)
+                # final ranking (device sums run in another order)
                 from fugu_tpu.ops.rescore import rescore_hits
 
                 results[i] = rescore_hits(segment, plans[i], stats, hits)[

@@ -14,15 +14,15 @@ the DP analog):
   identical to the single-chip engine.
 - **Phase A under shard_map**: every device streams its local pack
   through the unchanged phase-A kernel
-  (ops/batch_scorer.phasea_callable), emitting local [nbs_pad, 1, B]
+  (ops/batch_scorer.phasea_callable), emitting local [nbs_pad, F, B]
   maxima; the outputs stay device-sharded along the block axis and the
   device-side kth-threshold postprocessor (_get_postproc) runs as a
   plain jit over the sharded array — GSPMD inserts the cross-shard
-  gather for the global top-k (ICI collective), and only the bit-packed
-  candidate mask crosses to the host.
-- **Phase B**: per-shard candidate block lists feed the sharded Pallas
-  block scorer (parallel/pallas_sharded ``block_lists``), whose kernel
-  already merges per-shard top-k over the mesh collectives.
+  gather for the global top-k, and only the bit-packed candidate mask
+  crosses to the host.
+- **Phase B**: per-shard candidate block lists feed the sharded block
+  scorer (parallel/pallas_sharded ``block_lists``), which already
+  merges per-shard top-k over the mesh collectives.
 
 Kinds "pure"/"exact"/"shift" run in one wave exactly as the single-chip
 engine (the kth-of-maxima is a global bound — per-shard maxima are
@@ -57,6 +57,7 @@ from fugu_tpu.ops.batch_scorer import (
     NARROW_KINDS,
     U_BUCKETS,
     _PACK_MIN_B,
+    BM_SUBS_PER_BLOCK,
     _classify,
     _effective_kinds,
     _fine_for_stream,
@@ -65,6 +66,8 @@ from fugu_tpu.ops.batch_scorer import (
     _nb_pad,
     _pack_order,
     _unpack_mask,
+    n_terms_bucket,
+    pad_sub_offs,
     phasea_callable,
     plan_batches,
     stage_batch_weights,
@@ -120,13 +123,15 @@ class ShardedBlockMajor:
         # bf16, matching the single-chip BlockMajorPack (the phase-A
         # kernel's con lane is bf16; MARGIN_REL budgets the rounding)
         st_con = np.zeros((d, e_max), dtype=ml_dtypes.bfloat16)
-        offs = np.zeros((d, self.nbs_pad + 1), dtype=np.int32)
-        for s, (bm_doc, bm_tid, bm_con, chunk_offs, nb_s) in enumerate(packs):
+        offs = np.zeros(
+            (d, self.nbs_pad * BM_SUBS_PER_BLOCK + 1), dtype=np.int32
+        )
+        for s, (bm_doc, bm_tid, bm_con, sub_offs, _nb_s) in enumerate(packs):
             st_doc[s, : len(bm_doc)] = bm_doc
             st_tid[s, : len(bm_tid)] = bm_tid
             st_con[s, : len(bm_con)] = bm_con
-            offs[s, : nb_s + 1] = chunk_offs
-            offs[s, nb_s + 1 :] = chunk_offs[-1]  # padded blocks: 0 chunks
+            offs[s] = pad_sub_offs(sub_offs, self.nbs_pad)
+        self.n_terms_pad = n_terms_bucket(self.n_terms)
 
         spec = NamedSharding(mesh, P(shard_axes(mesh), None))
         self.d_doc = jax.device_put(st_doc, spec)
@@ -143,17 +148,15 @@ class ShardedBlockMajor:
 _SHARDED_PHASEA_CACHE: dict = {}
 
 
-def _get_sharded_phasea(mesh, nbs_pad, u_pad, b_pad, wide, interpret,
-                        packed=False, fine=None):
+def _get_sharded_phasea(mesh, nbs_pad, b_pad, wide, packed, fine,
+                        n_terms_pad):
     """jit(shard_map(phase-A kernel)) + the device postprocessor over the
     gathered maxima, emitting only the packed candidate mask."""
-    key = (mesh, nbs_pad, u_pad, b_pad, wide, interpret, packed, fine)
+    key = (mesh, nbs_pad, b_pad, wide, packed, fine, n_terms_pad)
     fn = _SHARDED_PHASEA_CACHE.get(key)
     if fn is not None:
         return fn
-    call = phasea_callable(
-        nbs_pad, u_pad, b_pad, wide, interpret, packed, fine
-    )
+    call = phasea_callable(nbs_pad, b_pad, wide, packed, fine, n_terms_pad)
     d = mesh.devices.size
     axes = shard_axes(mesh)
     post = _get_postproc(d * nbs_pad, b_pad, fine)
@@ -165,8 +168,8 @@ def _get_sharded_phasea(mesh, nbs_pad, u_pad, b_pad, wide, interpret,
     sharded = shard_map(
         local,
         mesh=mesh,
-        in_specs=(spec2, spec2, spec2, spec2, P(None, None), P(None, None),
-                  P(None, None)),
+        in_specs=(spec2, spec2, spec2, spec2, P(None, None), P(None),
+                  P(None)),
         out_specs=P(axes, None, None),
         check_vma=False,
     )
@@ -188,16 +191,15 @@ def batch_search_sharded(
     plans: Sequence[QueryPlan],
     stats,
     limits: Sequence[int],
-    interpret: Optional[bool] = None,
+    min_batch: int = MIN_BATCH,
 ) -> List[Optional[List[Tuple[float, int]]]]:
     """Two-phase sharded batch search; None entries = caller fallback
-    (the plain sharded block scorer / per-plan XLA sharded path)."""
+    (the plain sharded block scorer / per-plan XLA sharded path).  Fewer
+    than ``min_batch`` eligible plans return all-None."""
     from fugu_tpu.ops.pallas_scorer import BLOCK as B_BLOCK
     from fugu_tpu.ops.pallas_scorer import MAX_K
 
     results: List[Optional[List[Tuple[float, int]]]] = [None] * len(plans)
-    if interpret is None:
-        interpret = pack2.mesh.devices.flat[0].platform == "cpu"
 
     kinds = {}
     from fugu_tpu.ops.scoring import has_nonpositive_weight
@@ -215,7 +217,7 @@ def batch_search_sharded(
     # narrow kinds first so plan_batches' narrow/wide boundary doesn't
     # split the batch at every kind flip (mirrors the single-chip sort)
     elig = sorted(kinds, key=lambda i: (kinds[i] not in NARROW_KINDS, i))
-    if len(elig) < (1 if interpret else MIN_BATCH):
+    if len(elig) < max(min_batch, 1):
         return results
 
     k1 = plans[elig[0]].k1
@@ -270,8 +272,8 @@ def batch_search_sharded(
             if eff[i] == "gate":
                 margin_v[qi] = GATE_MARGIN
         fn = _get_sharded_phasea(
-            pack2.mesh, nbs_pad, u_pad, b_pad, wide, interpret, is_packed,
-            fine,
+            pack2.mesh, nbs_pad, b_pad, wide, is_packed, fine,
+            pack2.n_terms_pad,
         )
         packed = fn(
             pack2.d_offs,
@@ -332,7 +334,6 @@ def batch_search_sharded(
             [plans[i] for i in ii],
             stats,
             lim,
-            interpret=interpret,
             block_lists={j: wave_lists[i] for j, i in enumerate(ii)},
         )
         for j, i in enumerate(ii):

@@ -1,22 +1,19 @@
 """Sharded phrase stream: the brute-force corpus-position phrase engine
 (ops/phrase_stream) under a device mesh.
 
-Round-4 state: `parallel/` had zero phrase handling — under a sharded
-mesh the phrase class had no device path at all (VERDICT r4 missing #3).
-The stream kernel is embarrassingly block-parallel (one grid step per
-512-doc block, no cross-block state), so doc-range sharding is the same
-move as phase A's (parallel/batch_sharded):
+The sweep is block-parallel (no cross-block state), so doc-range
+sharding is the same move as phase A's (parallel/batch_sharded):
 
 - **ShardedTokenStream**: each shard holds the forward token stream of
   ITS doc range (local doc ids via ops/phrase_stream.build_stream_arrays
   with [doc_lo, doc_hi); per-field term ordinals are segment-global, so
-  the per-batch weight planes stay replicated).
-- **Kernel under shard_map**: every device sweeps its local stream with
-  the UNCHANGED phrase kernel; per-fine-block maxima/classes stay
+  the per-batch operands stay replicated).
+- **Sweep under shard_map**: every device sweeps its local stream with
+  the unchanged sweep; per-fine-block maxima/classes stay
   device-sharded along the block axis, and the phrase postprocessor
   (_get_phrase_post) runs as a plain jit over the sharded array —
-  GSPMD inserts the cross-shard gather for the global top-K (ICI
-  collective); only the [B, 3K+1] bound buffer crosses to the host.
+  GSPMD inserts the cross-shard gather for the global top-K; only the
+  [B, 3K+1] bound buffer crosses to the host.
 - **Host phase B**: global padded fine ids map to per-shard doc windows
   (clamped at shard bounds so a tail block never overlaps the next
   shard's block 0), then the same margin-free ordered verification
@@ -181,38 +178,37 @@ def get_sharded_token_stream(
 _SHARDED_PHRASE_CACHE: dict = {}
 
 
-def _get_sharded_phrase(mesh, nb_pad, u_pad, b_pad, kmax, smax, interpret):
-    """jit(shard_map(phrase kernel) -> phrase postproc): per-shard
+def _get_sharded_phrase(mesh, nb_pad, b_pad, kmax, smax):
+    """jit(shard_map(phrase sweep) -> phrase postproc): per-shard
     sweeps emit block-sharded maxima; the postproc's global top_k
     gathers the block axis over the mesh collectives and only the
     [B, 3K+1] bound buffer leaves the device."""
-    key = (mesh, nb_pad, u_pad, b_pad, kmax, smax, interpret)
+    key = (mesh, nb_pad, b_pad, kmax, smax)
     fn = _SHARDED_PHRASE_CACHE.get(key)
     if fn is not None:
         return fn
-    call = _phrase_callable(nb_pad, u_pad, b_pad, kmax, smax, interpret)
+    call = _phrase_callable(nb_pad, kmax, smax)
     d = mesh.devices.size
     axes = shard_axes(mesh)
     post = _get_phrase_post(d * nb_pad, b_pad)
 
-    def local(offs, tok, cv, fid, w, tids, wp):
-        return call(offs[0], tok[0], cv[0], fid[0], w, tids, wp)
+    def local(offs, tok, cv, fid, want, wp, slop):
+        return call(offs[0], tok[0], cv[0], fid[0], want, wp, slop)
 
     spec2 = P(axes, None)
     sharded = shard_map(
         local,
         mesh=mesh,
         in_specs=(
-            spec2, spec2, spec2, spec2,
-            P(None, None), P(None, None), P(None, None),
+            spec2, spec2, spec2, spec2, P(None, None), P(None), P(None),
         ),
         out_specs=(P(axes, None, None), P(axes, None, None)),
         check_vma=False,
     )
 
     @jax.jit
-    def run(offs, tok, cv, fid, w, tids, wp):
-        amax, acls = sharded(offs, tok, cv, fid, w, tids, wp)
+    def run(offs, tok, cv, fid, want, wp, slop):
+        amax, acls = sharded(offs, tok, cv, fid, want, wp, slop)
         return post(amax, acls)
 
     _SHARDED_PHRASE_CACHE[key] = run
@@ -225,13 +221,11 @@ def phrase_stream_sharded_begin(
     plans: Sequence[QueryPlan],
     stats,
     limits: Sequence[int],
-    interpret: Optional[bool] = None,
+    min_batch: int = PHRASE_MIN_BATCH,
 ):
     """Sharded analog of ops/phrase_stream.phrase_stream_begin: stage
     and dispatch eligible phrase plans over the mesh; returns a handle
     for :func:`phrase_stream_sharded_collect`."""
-    if interpret is None:
-        interpret = mesh.devices.flat[0].platform == "cpu"
     pre: List[Optional[List[Tuple[float, int]]]] = [None] * len(plans)
     staged: List[Tuple[int, PhraseClause]] = []
     by_field: Dict[str, List[int]] = {}
@@ -243,7 +237,6 @@ def phrase_stream_sharded_begin(
         clauses[i] = pc
         by_field.setdefault(pc.field, []).append(i)
 
-    min_batch = 1 if interpret else PHRASE_MIN_BATCH
     dispatches = []
     for field, idxs in sorted(by_field.items()):
         pack = get_sharded_token_stream(segment, field, mesh, stats)
@@ -255,25 +248,23 @@ def phrase_stream_sharded_begin(
                 pre[i] = []  # absent terms match nothing
             else:
                 run.append(i)
-        if len(run) < min_batch:
+        if len(run) < max(min_batch, 1):
             for i in run:
                 del clauses[i]  # host path serves these
             continue
         for q_idx, smax in split_dispatch_groups(run, clauses):
-            w, tid_arr, wp, u_pad, b_pad, kmax = stage_group_weights(
+            want, wp, slop, b_pad, kmax = stage_group_weights(
                 pack.tid_of, q_idx, clauses, stats, smax
             )
-            fn = _get_sharded_phrase(
-                mesh, pack.nb_pad, u_pad, b_pad, kmax, smax, interpret
-            )
+            fn = _get_sharded_phrase(mesh, pack.nb_pad, b_pad, kmax, smax)
             buf = fn(
                 pack.d_offs,
                 pack.d_tok,
                 pack.d_cv,
                 pack.d_fid,
-                jnp.asarray(w, dtype=jnp.bfloat16),
-                jnp.asarray(tid_arr),
+                jnp.asarray(want),
                 jnp.asarray(wp),
+                jnp.asarray(slop),
             )
             dispatches.append((q_idx, buf, pack))
             for i in q_idx:
@@ -326,11 +317,11 @@ def batch_phrase_search_sharded(
     plans: Sequence[QueryPlan],
     stats,
     limits: Sequence[int],
-    interpret: Optional[bool] = None,
+    min_batch: int = PHRASE_MIN_BATCH,
 ) -> List[Optional[List[Tuple[float, int]]]]:
     """Synchronous begin+collect (None entries = caller's host path)."""
     return phrase_stream_sharded_collect(
         phrase_stream_sharded_begin(
-            segment, mesh, plans, stats, limits, interpret
+            segment, mesh, plans, stats, limits, min_batch
         )
     )

@@ -1,8 +1,8 @@
-"""Multi-chip search: doc-range sharding + per-shard top-k + ICI merge.
+"""Multi-device search: doc-range sharding + per-shard top-k + merge.
 
 The reference is strictly single-process with no distribution of any kind
-(SURVEY.md §2c); this module is the TPU build's scale-out story per
-BASELINE config #5:
+(SURVEY.md §2c); this module is the scale-out path per BASELINE config
+#5.  It has only run on virtual CPU devices (tests, __graft_entry__.py):
 
 - a segment's docs are partitioned into contiguous id ranges, one per
   device of a 1-D ``jax.sharding.Mesh`` ("d" axis = the data-parallel
@@ -12,7 +12,7 @@ BASELINE config #5:
   shard; BM25 weights are global — idf/avg statistics are index-wide)
 - under ``shard_map`` every device scores its local postings with the
   same kernel as the single-chip path, then the per-shard top-k
-  (score, global doc id) pairs ride an ``all_gather`` over ICI and a
+  (score, global doc id) pairs ride an ``all_gather`` and a
   final top-k merges them; shard order preserves the doc-ascending
   tiebreak
 
@@ -33,19 +33,18 @@ from jax import shard_map
 
 from fugu_tpu.index.segment import DOC_SENTINEL, FACET_FIELD_KEY, Segment
 from fugu_tpu.ops import buckets
-from fugu_tpu.ops.scoring import NEG_INF
+from fugu_tpu.ops.scoring import NEG_INF, top_k_lowest
 from fugu_tpu.query import Occur, QueryPlan, bm25_denom_consts, bm25_weight, idf
 
 
 def make_mesh(n_devices: Optional[int] = None, n_slices: int = 1) -> Mesh:
     """Device mesh for doc-range sharding.
 
-    ``n_slices > 1`` builds a 2-D ("dcn", "d") mesh — the multi-slice
-    layout where the outer axis crosses slices over DCN and the inner
-    axis stays on-slice over ICI.  The top-k merge gathers hierarchically
-    (ICI first, then only k survivors per slice ride DCN).  On a single
-    host the outer axis is simulated; the sharding/collective program is
-    identical on a real multi-slice mesh (SURVEY.md §2c comm backend).
+    ``n_slices > 1`` builds a 2-D ("dcn", "d") mesh with an outer and an
+    inner axis; the top-k merge gathers hierarchically (inner axis
+    first, then only k survivors per group cross the outer one).  The
+    2-D shape follows a multi-slice pod topology; over all-to-all links
+    it is only another grid.
     """
     devs = jax.devices()
     n = n_devices or len(devs)
@@ -249,13 +248,13 @@ def _sharded_topk(
         gdoc = jnp.where(
             top > NEG_INF, docs + offsets[0, 0], jnp.int32(DOC_SENTINEL)
         )
-        # hierarchical per-shard top-k merge: gather the inner axis first
-        # (ICI), keep only kk survivors, then the outer axis (DCN on a
-        # multi-slice mesh) carries just kk entries per slice
+        # hierarchical per-shard top-k merge: gather the inner axis first,
+        # keep only kk survivors, then the outer axis carries just kk
+        # entries per group
         for ax in reversed(shard_axes(mesh)):
             all_scores = jax.lax.all_gather(top, ax).reshape(-1)
             all_docs = jax.lax.all_gather(gdoc, ax).reshape(-1)
-            top, mi = jax.lax.top_k(all_scores, kk)
+            top, mi = top_k_lowest(all_scores, kk)
             gdoc = all_docs[mi]
         return top[None, :], gdoc[None, :]
 
@@ -319,7 +318,7 @@ def sharded_search(
     keep = np.isfinite(scores) & (docs != DOC_SENTINEL)
     hits = [(float(s), int(d)) for s, d in zip(scores[keep], docs[keep])]
     # device floats -> oracle-exact host floats before the final
-    # ranking (TPU division is not IEEE-exact); docs are global ids
+    # ranking (device sums run in another order); docs are global ids
     from fugu_tpu.ops.rescore import rescore_hits
 
     return rescore_hits(pack.segment, plan, stats, hits)[:limit]

@@ -171,9 +171,7 @@ def prune_dead_alternatives(plan: QueryPlan, df_of) -> QueryPlan:
     absent, HALF of every live query's union terms are dead:
 
     - dead TERMS still occupy union-term lanes in the batch scorer's
-      staging and weight matrix, inflating the u_pad bucket (measured
-      2026-08-19, mixed 64-query parser batch at 1M docs: 555ms with
-      the dead name-field lanes vs 237-255ms pruned — 2.2x);
+      staging and weight matrix, inflating the u_pad bucket;
     - dead PHRASE alternatives make groups multi-alternative, which
       bypasses both fast phrase paths (ops/phrase.py single-clause
       shape, phrase_stream.eligible_phrase) and lands on the dense

@@ -1112,7 +1112,7 @@ def start_http_server(
 
     if _os.environ.get("FUGU_WARMUP") == "1":
         # pre-trigger engine compiles + the device pack upload so first
-        # queries don't stall on (persistently cached) XLA/Mosaic
+        # queries don't stall on (persistently cached) XLA/Triton
         # compilation.  Real high-df terms matter: made-up terms stage
         # zero posting blocks and compile the wrong block-count bucket.
         for ns, ds in db.datasets.items():

@@ -331,7 +331,7 @@ def build_openapi(version: str) -> Dict[str, Any]:
         "openapi": "3.0.3",
         "info": {
             "title": "Fugu",
-            "description": "TPU-native namespace-scoped full-text search",
+            "description": "Namespace-scoped full-text search",
             "version": version,
         },
         "paths": paths,

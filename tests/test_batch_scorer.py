@@ -58,7 +58,7 @@ def test_batch_scorer_parity(seg):
                 )
             )
         plans.append(QueryPlan(groups=tuple(groups)))
-    res = batch_search_should(seg, plans, stats, 10, interpret=True)
+    res = batch_search_should(seg, plans, stats, 10, min_batch=1)
     for plan, r in zip(plans, res):
         assert_tie_tolerant(r, plan, seg, stats, 10)
 
@@ -77,7 +77,7 @@ def test_batch_scorer_skips_ineligible(seg):
             groups=(QueryGroup(Occur.MUST_NOT, (TermClause("text", "w1"),)),)
         ),
     ]
-    res = batch_search_should(seg, plans, stats, 10, interpret=True)
+    res = batch_search_should(seg, plans, stats, 10, min_batch=1)
     assert res == [None, None, None]
 
 
@@ -120,7 +120,7 @@ def test_batch_scorer_constrained_parity(seg):
             )
         ]
         plans.append(QueryPlan(groups=tuple(groups)))
-    res = batch_search_should(seg, plans, stats, 10, interpret=True)
+    res = batch_search_should(seg, plans, stats, 10, min_batch=1)
     for plan, r in zip(plans, res):
         assert_tie_tolerant(r, plan, seg, stats, 10)
 
@@ -139,7 +139,7 @@ def test_batch_scorer_mixed_limits_share_phase_a(seg):
         ),
     ]
     limits = [10, 100, 100]
-    res = batch_search(seg, plans, stats, limits, interpret=True)
+    res = batch_search(seg, plans, stats, limits, min_batch=1)
     for plan, lim, r in zip(plans, limits, res):
         assert_tie_tolerant(r, plan, seg, stats, lim)
     assert len(res[1]) > len(res[0])
@@ -168,7 +168,7 @@ def test_batch_scorer_constrained_underfill(seg):
                 plan = p
                 break
     assert plan is not None, "corpus should contain a sparse MUST AND"
-    res = batch_search_should(seg, [plan], stats, 10, interpret=True)
+    res = batch_search_should(seg, [plan], stats, 10, min_batch=1)
     assert_tie_tolerant(res[0], plan, seg, stats, 10)
 
 
@@ -180,7 +180,7 @@ def test_batch_scorer_empty_and_missing_terms(seg):
         ),
         QueryPlan(groups=(QueryGroup(Occur.SHOULD, (TermClause("text", "w3"),)),)),
     ]
-    res = batch_search_should(seg, plans, stats, 10, interpret=True)
+    res = batch_search_should(seg, plans, stats, 10, min_batch=1)
     assert res[0] == []
     exp = [(h.score, h.doc) for h in oracle.search([seg], plans[1], 10, stats)]
     assert [d for _, d in res[1]] == [d for _, d in exp]
@@ -223,7 +223,7 @@ def test_batch_scorer_shift_kind_parity(seg):
     # round 3: these narrow-gate now (was "shift"); the parity assert
     # below still pins the require_should semantics bit-exactly
     assert all(_classify(p) == "gate" for p in plans)
-    res = batch_search_should(seg, plans, stats, 10, interpret=True)
+    res = batch_search_should(seg, plans, stats, 10, min_batch=1)
     for plan, r in zip(plans, res):
         assert_tie_tolerant(r, plan, seg, stats, 10)
 
@@ -286,7 +286,7 @@ def test_neg_kind_parity_and_exclusion(seg):
             )
         )
     )
-    res = batch_search_should(seg, plans, stats, 10, interpret=True)
+    res = batch_search_should(seg, plans, stats, 10, min_batch=1)
     for plan, r in zip(plans, res):
         assert_tie_tolerant(r, plan, seg, stats, 10)
 
@@ -343,7 +343,7 @@ def test_gate_kind_parity(seg):
             )
         )
     )
-    res = batch_search_should(seg, plans, stats, 10, interpret=True)
+    res = batch_search_should(seg, plans, stats, 10, min_batch=1)
     for plan, r in zip(plans, res):
         assert_tie_tolerant(r, plan, seg, stats, 10)
     assert res[-1] == []
@@ -383,7 +383,7 @@ def test_packed_count_lanes_parity(seg, monkeypatch):
             plans.append(_must_plan(*(f"w{x}" for x in t[:-1]), nots=(f"w{t[-1]}",)))
         else:
             plans.append(_must_plan(*(f"w{x}" for x in t)))
-    res = batch_search_should(seg, plans, stats, 10, interpret=True)
+    res = batch_search_should(seg, plans, stats, 10, min_batch=1)
     assert engaged.get("order") is not None, "packing never engaged"
     for plan, r in zip(plans, res):
         assert_tie_tolerant(r, plan, seg, stats, 10)
@@ -479,7 +479,7 @@ def test_merge_streams_folds_mixed_batch(seg, monkeypatch):
     for _ in range(6):  # wide: text MUSTs
         t = rng.choice(50, size=2, replace=False)
         plans.append(_must_plan(*(f"w{x}" for x in t)))
-    res = batch_search_should(seg, plans, stats, 10, interpret=True)
+    res = batch_search_should(seg, plans, stats, 10, min_batch=1)
     # one merged stream, not a narrow + a wide one
     assert len(seen["batches"]) == 1, seen["batches"]
     assert sorted(seen["batches"][0]) == list(range(len(plans)))
@@ -550,15 +550,16 @@ def test_boosted_should_vs_mustnot_penalty():
         )
     )
     assert _classify(plan) == "exact"  # not "neg": boost cap exceeded
-    res = batch_search_should(seg, [plan], stats, 10, interpret=True)
+    res = batch_search_should(seg, [plan], stats, 10, min_batch=1)
     assert_tie_tolerant(res[0], plan, seg, stats, 10)
     assert len(res[0]) == 10
 
 
-def test_ik_bound_order_parity(seg, monkeypatch):
-    """Bound-DESC block visiting for the in-kernel top-k (r5) is a perf
-    hint only: results must be BIT-IDENTICAL to the oracle and to the
-    unordered run, including tie ordering at a deep limit."""
+@pytest.mark.parametrize("limit", [100, 128])
+def test_deep_limit_tie_parity(seg, limit):
+    """Deep extraction through both phases on heavy (tie-rich) terms:
+    results must be BIT-IDENTICAL to the oracle, including which tied
+    docs survive at the limit (the (score desc, doc asc) rule)."""
     stats = oracle.IndexStats([seg])
     rng = np.random.default_rng(9)
     plans = []
@@ -573,13 +574,110 @@ def test_ik_bound_order_parity(seg, monkeypatch):
                 )
             )
         )
-    monkeypatch.setenv("FUGU_INKERNEL_TOPK", "1")
-    monkeypatch.setenv("FUGU_IK_BOUND_ORDER", "1")
-    ordered = batch_search(seg, plans, stats, [100] * len(plans),
-                           interpret=True)
-    monkeypatch.setenv("FUGU_IK_BOUND_ORDER", "0")
-    plain = batch_search(seg, plans, stats, [100] * len(plans),
-                         interpret=True)
-    for plan, a, b2 in zip(plans, ordered, plain):
-        assert a is not None and a == b2
-        assert_tie_tolerant(a, plan, seg, stats, 100)
+    res = batch_search(seg, plans, stats, [limit] * len(plans),
+                       min_batch=1)
+    for plan, got in zip(plans, res):
+        assert got is not None
+        assert_tie_tolerant(got, plan, seg, stats, limit)
+
+
+@pytest.mark.parametrize("layout", ["narrow", "wide", "packed"])
+def test_phasea_kernel_vs_references(seg, layout):
+    """The phase-A Triton kernel (interpret mode) against a NumPy
+    reference of the same bf16 arithmetic (tight) and against the
+    oracle's per-slice maxima (within the stated margin), in each lane
+    layout."""
+    import jax.numpy as jnp
+    import ml_dtypes
+
+    from fugu_tpu.ops import batch_scorer as bs
+
+    stats = oracle.IndexStats([seg])
+    rng = np.random.default_rng(21)
+    b_pad = 64
+    plans = []
+    for i in range(b_pad):
+        t = [f"w{x}" for x in rng.choice(50, size=2, replace=False)]
+        occ = Occur.SHOULD if layout == "narrow" else (
+            Occur.MUST if i % 2 else Occur.MUST_NOT
+        )
+        plans.append(QueryPlan(groups=(
+            QueryGroup(Occur.SHOULD, (TermClause("text", t[0]),)),
+            QueryGroup(occ, (TermClause("text", t[1]),)),
+        )))
+    pack = seg.block_major(stats)
+    wide = layout != "narrow"
+    packed = layout == "packed"
+    q_idx = list(range(b_pad))
+    if packed:
+        q_idx = bs._pack_order(q_idx, plans, pack.tid_of, b_pad // 2)
+    kinds = {i: bs._classify(p) for i, p in enumerate(plans)}
+    eff = bs._effective_kinds(plans, kinds, q_idx, wide)
+    terms = {}
+    for i in q_idx:
+        if i is not None:
+            for t in bs._plan_tids(plans[i], pack.tid_of):
+                terms.setdefault(t, len(terms))
+    shifts = {}
+    w2, nm, tids = bs.stage_batch_weights(
+        plans, eff, q_idx, terms, stats, pack.tid_of, b_pad, wide,
+        plans[0].k1, shifts, packed=packed,
+    )
+    nb_pad = bs._nb_pad(pack.n_blocks)
+    fine = bs.FINE_PER_BLOCK
+    fn = bs.phasea_callable(
+        nb_pad, b_pad, wide, packed, fine,
+        bs.n_terms_bucket(pack.n_terms), interpret=True,
+    )
+    got = np.asarray(fn(
+        jnp.asarray(bs.pad_sub_offs(pack.sub_offs, nb_pad)), pack.d_doc,
+        pack.d_tid, pack.d_con, jnp.asarray(w2, dtype=jnp.bfloat16),
+        jnp.asarray(tids), jnp.asarray(nm),
+    ))
+    assert got.shape == (nb_pad, fine, b_pad)
+
+    # NumPy reference of the kernel's arithmetic: bf16 w, bf16 con, the
+    # product rounded to bf16, f64 sums, then the same masks
+    bf = lambda a: np.asarray(a, np.float32).astype(ml_dtypes.bfloat16).astype(np.float64)
+    doc = np.asarray(pack.d_doc)
+    tid = np.asarray(pack.d_tid)
+    con = np.asarray(pack.d_con.astype(jnp.float32), np.float64)
+    slot = {int(t): u for u, t in enumerate(tids) if t >= 0}
+    n_docs = nb_pad * 512
+    wb = bf(w2)
+    lanes = np.zeros((n_docs, w2.shape[1]))
+    for e in np.nonzero((doc >= 0) & np.isin(tid, list(slot)))[0]:
+        row = wb[slot[int(tid[e])]]
+        v = row.copy()
+        v[:b_pad] = bf(row[:b_pad] * con[e])
+        lanes[doc[e]] += v
+    scores = lanes[:, :b_pad]
+    if wide:
+        cnt = lanes[:, b_pad:]
+        if packed:
+            hi = np.floor(cnt / bs._PACK_FIELD + 0.5)
+            lo = cnt - hi * bs._PACK_FIELD
+            cnt = np.concatenate([lo, hi], axis=1)
+        ok = (scores > 0) & (cnt > nm[None, :] - 0.5)
+    else:
+        ok = scores > nm[None, :]
+    ref = np.where(ok, scores, -np.inf).reshape(nb_pad, fine, -1, b_pad).max(2)
+    fin = np.isfinite(ref)
+    assert np.array_equal(np.isfinite(got), fin)
+    np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-5)
+
+    # oracle per-slice maxima, within MARGIN_REL / MARGIN_ABS
+    for qi, i in enumerate(q_idx[:16]):
+        if i is None:
+            continue
+        sc, mask = oracle.score_segment(seg, plans[i], stats)
+        v = np.full(n_docs, -np.inf, np.float32)
+        v[: len(sc)] = np.where(mask, sc, -np.inf)
+        want = v.reshape(-1, bs.BM_FINE_DOCS).max(axis=1)
+        g = got[:, :, qi].reshape(-1) + shifts.get(i, 0.0)
+        f = np.isfinite(want)
+        assert np.array_equal(np.isfinite(g), f)
+        assert np.all(
+            np.abs(g[f] - want[f])
+            <= np.abs(want[f]) * bs.MARGIN_REL + bs.MARGIN_ABS
+        )

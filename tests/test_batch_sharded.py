@@ -84,7 +84,7 @@ def test_sharded_two_phase_parity(seg, n_dev, n_slices):
     plans = make_plans(rng, 20)
     limits = [int(rng.choice([5, 10])) for _ in plans]
     res = batch_search_sharded(
-        pack2, spack, plans, stats, limits, interpret=True
+        pack2, spack, plans, stats, limits, min_batch=1
     )
     n_handled = 0
     for plan, lim, r in zip(plans, limits, res):
@@ -177,7 +177,7 @@ def test_sharded_packed_and_merged_streams_parity(seg, monkeypatch):
         plans.append(QueryPlan(groups=tuple(groups)))
     limits = [int(rng.choice([5, 10])) for _ in plans]
     res = batch_search_sharded(
-        pack2, spack, plans, stats, limits, interpret=True
+        pack2, spack, plans, stats, limits, min_batch=1
     )
     assert engaged.get("order") is not None, "packing never engaged"
     n_handled = 0

@@ -92,7 +92,7 @@ def test_fine_per_block_parity(seg, fine):
         assert bs.BM_FINE_DOCS * fine == 512
         stats = oracle.IndexStats([seg])
         plans, limits = _mixed_plans(np.random.default_rng(7))
-        res = bs.batch_search(seg, plans, stats, limits, interpret=True)
+        res = bs.batch_search(seg, plans, stats, limits, min_batch=1)
         for plan, lim, got in zip(plans, limits, res):
             exp = [
                 (h.score, h.doc)
@@ -122,7 +122,7 @@ def test_planner_deep_stream_picks_fine4(seg):
         stats = oracle.IndexStats([seg])
         plans, _ = _mixed_plans(np.random.default_rng(13))
         limits = [100] * len(plans)
-        res = bs.batch_search(seg, plans, stats, limits, interpret=True)
+        res = bs.batch_search(seg, plans, stats, limits, min_batch=1)
         for plan, lim, got in zip(plans, limits, res):
             exp = [
                 (h.score, h.doc)

@@ -1,4 +1,4 @@
-"""Pallas block scorer vs oracle (interpret mode on CPU; compiled on TPU)."""
+"""Block scorer (plain XLA) vs oracle."""
 
 import numpy as np
 import pytest
@@ -34,7 +34,7 @@ def seg():
 
 def check(seg, plan, limit=10):
     stats = oracle.IndexStats([seg])
-    got = pallas_search_batch(seg, [plan], stats, limit, interpret=True)[0]
+    got = pallas_search_batch(seg, [plan], stats, limit)[0]
     assert got is not None
     expected = oracle.search([seg], plan, limit, stats)
     assert len(got) == len(expected), (got, expected)
@@ -108,7 +108,7 @@ def test_batched_mixed(seg):
         plan_terms("w2", "w5", "w7"),
         plan_terms("w50"),
     ]
-    got = pallas_search_batch(seg, plans, stats, 10, interpret=True)
+    got = pallas_search_batch(seg, plans, stats, 10)
     for plan, res in zip(plans, got):
         assert res is not None
         exp = oracle.search([seg], plan, 10, stats)
@@ -127,7 +127,7 @@ def test_empty_result():
     seg = make_segment(n_docs=50, seed=4)
     stats = oracle.IndexStats([seg])
     plan = plan_terms("zzz_absent")
-    res = pallas_search_batch(seg, [plan], stats, 10, interpret=True)
+    res = pallas_search_batch(seg, [plan], stats, 10)
     assert res[0] == []
 
 
@@ -149,8 +149,7 @@ def test_k_up_to_128(seg):
 
     check(seg, plan_terms("w1"), limit=100)
     stats = oracle.IndexStats([seg])
-    out = ps.pallas_search_batch(seg, [plan_terms("w1")], stats, 129,
-                                 interpret=True)
+    out = ps.pallas_search_batch(seg, [plan_terms("w1")], stats, 129)
     assert out == [None]
 
 
@@ -169,14 +168,12 @@ def test_group_bit_31_no_overflow(seg):
     check(seg, plan, limit=20)
 
 
-def test_inkernel_topk_parity_and_ties(monkeypatch):
-    """r5 in-kernel bitonic top-128: forced on AND forced off must both
-    reproduce the oracle exactly at limit 100, including a corpus where
-    >128 docs tie on the same score class (the doc-asc tiebreak decides
-    WHICH docs survive extraction — candidate-set equality matters, not
-    just ordering)."""
-    from fugu_tpu.ops import pallas_scorer as ps
-
+@pytest.mark.parametrize("limit", [100, 128])
+def test_topk_parity_and_ties(limit):
+    """The block scorer's top-k must reproduce the oracle exactly at deep
+    limits on a corpus where >128 docs tie on the same score class (the
+    doc-asc tiebreak decides WHICH docs survive extraction —
+    candidate-set equality matters, not just ordering)."""
     b = SegmentBuilder(DOCS_SCHEMA)
     # 8000 docs across >3 blocks; a 30% minority matches "foo bar" with
     # the same tf and fieldnorm -> a >128-deep score tie at POSITIVE
@@ -195,20 +192,13 @@ def test_inkernel_topk_parity_and_ties(monkeypatch):
     stats = oracle.IndexStats([s])
     plan = plan_terms("foo", "bar")
 
-    outs = {}
-    for mode in ("1", "0"):
-        monkeypatch.setenv("FUGU_INKERNEL_TOPK", mode)
-        ps._SCORER_CACHE.clear()
-        got = pallas_search_batch(s, [plan], stats, 100, interpret=True)[0]
-        assert got is not None
-        outs[mode] = [(np.float32(sc), d) for sc, d in got]
+    got = pallas_search_batch(s, [plan], stats, limit)[0]
+    assert got is not None
     exp = [
         (np.float32(h.score), h.doc)
-        for h in oracle.search([s], plan, 100, stats)
+        for h in oracle.search([s], plan, limit, stats)
     ]
-    assert outs["1"] == exp
-    assert outs["0"] == exp
-    ps._SCORER_CACHE.clear()
+    assert [(np.float32(sc), d) for sc, d in got] == exp
 
 
 def test_negative_idf_routes_off_device(monkeypatch):
@@ -234,10 +224,10 @@ def test_negative_idf_routes_off_device(monkeypatch):
         for h in oracle.search([s], plan, 50, stats)
     ]
     assert exp and exp[0][0] < 0  # the regime under test
-    assert ps.pallas_search_batch(s, [plan], stats, 50, interpret=True) == [
+    assert ps.pallas_search_batch(s, [plan], stats, 50) == [
         None
     ]
-    assert batch_search(s, [plan], stats, [50], interpret=True) == [None]
+    assert batch_search(s, [plan], stats, [50], min_batch=1) == [None]
     # the XLA merge-network path matches by group bits (not scores > 0)
     # and stays EXACT under negative weights — it keeps serving
     xla = device_search_segment(s, plan, stats, 50)
@@ -248,15 +238,12 @@ def test_negative_idf_routes_off_device(monkeypatch):
         assert [(np.float32(sc), d) for sc, d in got] == exp
 
 
-def test_inkernel_topk_with_slice_split(monkeypatch):
-    """In-kernel extraction under NB_SPLIT=1 (every block its own row):
-    per-row running buffers merge on the host and must stay exact."""
+def test_deep_limit_with_slice_split(monkeypatch):
+    """Deep extraction under NB_SPLIT=1 (every block its own row): per-row
+    top-k lists merge on the host and must stay exact."""
     from fugu_tpu.ops import pallas_scorer as ps
 
-    monkeypatch.setenv("FUGU_INKERNEL_TOPK", "all")
     monkeypatch.setattr(ps, "NB_SPLIT", 1)
-    ps._SCORER_CACHE.clear()
     seg = make_segment()
     check(seg, plan_terms("w0", "w3"), limit=100)
     check(seg, plan_terms("w0", "w5", occur=Occur.MUST), limit=20)
-    ps._SCORER_CACHE.clear()

@@ -1,8 +1,7 @@
-"""Batched Pallas sharded engine: oracle parity on 1-D and 2-D meshes.
+"""Batched sharded block scorer: oracle parity on 1-D and 2-D meshes.
 
-Runs on the 8-virtual-device CPU mesh (conftest); the Pallas kernel
-executes in interpret mode there — the compiled path is identical on a
-real TPU mesh (same program, same shard_map specs).
+Runs on the 8-virtual-device CPU mesh (conftest); the same program and
+shard_map specs compile for a mesh of GPUs.
 """
 
 import numpy as np
@@ -175,7 +174,7 @@ def test_block_heavy_shards_split_into_slice_rows(seg, monkeypatch):
     mesh = make_mesh(1)  # one shard holds ALL (2) blocks -> 2 slice rows
     pack = PallasShardedPack(seg, mesh)
     stats = oracle.IndexStats([seg])
-    res = pallas_sharded_search_batch(pack, PLANS, stats, 10, interpret=True)
+    res = pallas_sharded_search_batch(pack, PLANS, stats, 10)
     # the budget actually bites: the single shard spans >1 kernel block,
     # so a 1-block slice limit forces multiple rows per plan
     assert pack.n_blocks > 1

@@ -82,7 +82,7 @@ def test_sharded_phrase_parity(seg, stats, mesh):
         plans.append(_phrase_plan([f"w{w[0]}", f"w{w[1]}"]))
         limits.append(int(rng.choice([3, 10, 50])))
     res = batch_phrase_search_sharded(
-        seg, mesh, plans, stats, limits, interpret=True
+        seg, mesh, plans, stats, limits, min_batch=1
     )
     for plan, lim, got in zip(plans, limits, res):
         assert got is not None, plan
@@ -100,7 +100,7 @@ def test_sharded_phrase_slop_boost_and_lengths(seg, stats, mesh):
     ]
     limits = [5, 10, 10, 10, 10, 100]
     res = batch_phrase_search_sharded(
-        seg, mesh, plans, stats, limits, interpret=True
+        seg, mesh, plans, stats, limits, min_batch=1
     )
     for plan, lim, got in zip(plans, limits, res):
         assert got is not None, plan
@@ -116,9 +116,9 @@ def test_sharded_matches_single_chip(seg, stats, mesh):
     plans = [_phrase_plan([f"w{i}", f"w{(i + 3) % 30}"]) for i in range(10)]
     limits = [10] * len(plans)
     sharded = batch_phrase_search_sharded(
-        seg, mesh, plans, stats, limits, interpret=True
+        seg, mesh, plans, stats, limits, min_batch=1
     )
-    single = batch_phrase_search(seg, plans, stats, limits, interpret=True)
+    single = batch_phrase_search(seg, plans, stats, limits, min_batch=1)
     for plan, a, b in zip(plans, sharded, single):
         assert a is not None and b is not None
         assert _got(a) == _got(b), plan
@@ -127,7 +127,7 @@ def test_sharded_matches_single_chip(seg, stats, mesh):
 def test_sharded_tombstones_and_long_doc(seg, stats, mesh):
     plan = _phrase_plan(["w1", "w2"])
     res = batch_phrase_search_sharded(
-        seg, mesh, [plan], stats, [3], interpret=True
+        seg, mesh, [plan], stats, [3], min_batch=1
     )
     assert _got(res[0]) == _expect(seg, stats, plan, 3)
     assert res[0][0][1] == seg.doc_count - 1  # the long doc tops on tf
@@ -139,7 +139,7 @@ def test_sharded_residency_registered(seg, stats, mesh):
     from fugu_tpu.ops import residency
 
     batch_phrase_search_sharded(
-        seg, mesh, [_phrase_plan(["w1", "w2"])], stats, [5], interpret=True
+        seg, mesh, [_phrase_plan(["w1", "w2"])], stats, [5], min_batch=1
     )
     st = residency.stats()
     assert st["by_kind"].get("token_stream", 0) > 0
@@ -153,7 +153,7 @@ def test_sharded_stream_evicted_then_reserved(seg, stats, mesh, monkeypatch):
 
     plans = [_phrase_plan(["w1", "w2"]), _phrase_plan(["w2", "w3"], slop=1)]
     first = batch_phrase_search_sharded(
-        seg, mesh, plans, stats, [5, 5], interpret=True
+        seg, mesh, plans, stats, [5, 5], min_batch=1
     )
     key = ("stok", id(seg), "text")
     assert residency.contains(key)
@@ -165,7 +165,7 @@ def test_sharded_stream_evicted_then_reserved(seg, stats, mesh, monkeypatch):
     monkeypatch.setenv("FUGU_DEVICE_MEM_BUDGET", "auto")
     residency.unregister(("probe", 0))
     second = batch_phrase_search_sharded(
-        seg, mesh, plans, stats, [5, 5], interpret=True
+        seg, mesh, plans, stats, [5, 5], min_batch=1
     )
     assert first == second
     assert residency.contains(key)

@@ -226,7 +226,7 @@ def main() -> None:
         for q in queries
     ]
 
-    # warmup: compile every signature + converge the relay — loop until
+    # warmup: compile every signature — loop until
     # two consecutive passes agree within 15% (bench.py's protocol),
     # bounded at 10 passes
     log("warmup...")
@@ -246,11 +246,9 @@ def main() -> None:
     for conc in [int(c) for c in args.concurrency.split(",")]:
         # untimed full-coverage pass at THIS level's concurrency first:
         # batch composition (hence u_pad/b_pad bucket mix) depends on
-        # both, and a shape's first use in a process pays a ~1s
-        # persistent-cache executable load (or a remote compile if
-        # truly new) — measured 2026-08-20: ~60s of such stalls landed
-        # inside the first timed 64-way level (14 QPS), while levels
-        # 2-3 of a 64,64,64 run read 144.7/166.1 QPS.
+        # both, and a shape's first use in a process pays a
+        # persistent-cache executable load (or a compile if truly new),
+        # which must not land inside a timed level.
         _dt, werrs = asyncio.run(
             drive(srv.base, bodies, conc, max(args.requests, len(bodies)))
         )
